@@ -1,0 +1,102 @@
+"""Command-line entry point: `python -m shortseq_torch <command>`.
+
+Commands:
+  umi FILE     UMI-deduplicate FASTQ reads (molecule table to stdout)
+
+The same arguments and the same TSV / JSON output as
+`python -m shortseq_tpu umi`, plus `--device` (default cuda).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _write_table(args, items, to_json, to_row):
+    """--top/--json/--output writer."""
+    if args.top:
+        items = items[:args.top]
+    out = open(args.output, "w") if args.output else sys.stdout
+    try:
+        if args.json:
+            json.dump(to_json(items), out)
+            out.write("\n")
+        else:
+            for k, v in items:
+                out.write(to_row(k, v))
+    finally:
+        if args.output:
+            out.close()
+
+
+def _cmd_umi(args) -> int:
+    import numpy as np
+
+    from .io.fastq import read_fastq_matrix
+    from .umi.dedup import dedup_reads
+
+    if args.len_5p + args.len_3p <= 0:
+        print("error: at least one of --len-5p/--len-3p must be positive",
+              file=sys.stderr)
+        return 2
+    mat, lengths = read_fastq_matrix(args.file, pad_to=1)
+    if len(lengths) and (lengths == lengths[0]).all():
+        reads = np.ascontiguousarray(mat[:, :lengths[0]])  # matrix path
+    else:
+        reads = [mat[i, :lengths[i]].tobytes() for i in range(len(lengths))]
+    try:
+        labels, molecules = dedup_reads(
+            reads, len_5p=args.len_5p, len_3p=args.len_3p,
+            threshold=args.threshold, method=args.method,
+            device=args.device)
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    counts = np.bincount(labels, minlength=len(molecules))
+    print(f"{len(labels)} reads -> {len(molecules)} molecules "
+          f"({args.method}, threshold {args.threshold})", file=sys.stderr)
+
+    items = sorted(zip(molecules, counts), key=lambda kv: -kv[1])
+    _write_table(
+        args, items,
+        to_json=lambda items: [{"insert": i.decode("ascii", "replace"),
+                                "umi": u.decode("ascii", "replace"),
+                                "reads": int(c)} for (i, u), c in items],
+        to_row=lambda mol, c: (f"{mol[0].decode('ascii', 'replace')}\t"
+                               f"{mol[1].decode('ascii', 'replace')}\t{c}\n"))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m shortseq_torch",
+                                 description=__doc__.splitlines()[0])
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    u = sub.add_parser("umi", help="UMI-deduplicate FASTQ reads")
+    u.add_argument("file")
+    u.add_argument("--len-5p", type=int, default=0,
+                   help="UMI length on the 5' end")
+    u.add_argument("--len-3p", type=int, default=0,
+                   help="UMI length on the 3' end")
+    u.add_argument("--threshold", type=int, default=1,
+                   help="max hamming distance for UMI collapse")
+    u.add_argument("--method", default="directional",
+                   choices=("unique", "cluster", "adjacency", "directional"))
+    u.add_argument("--top", type=int, default=0,
+                   help="only the N most frequent molecules")
+    u.add_argument("--json", action="store_true",
+                   help="JSON list instead of TSV")
+    u.add_argument("--output", "-o", default=None,
+                   help="write the table here instead of stdout")
+    u.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the pack and adjacency stages run")
+    u.set_defaults(fn=_cmd_umi)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

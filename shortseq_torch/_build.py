@@ -1,0 +1,177 @@
+"""Build and load, at first use, the two native libraries of the port.
+
+* CUDA: every `shortseq_torch/csrc/*.cu` compiled by nvcc for sm_90a into
+  one shared library with a plain C interface, bound with ctypes.  A
+  failed build raises with nvcc's own message: the device path never
+  gives way to the plain PyTorch versions.
+* Host: the unchanged `csrc/fastq_index.cpp` (FASTQ indexer, hash
+  counter, greedy UMI collapse) compiled by g++ exactly as the JAX
+  package builds it.  Host code keeps that package's behaviour when no
+  compiler is present: callers take their pure-Python paths.
+
+Both land under `build/shortseq_torch/` at the repository root, named by a
+hash of their sources and flags, and are published by an atomic rename so
+a concurrent process never loads a half-written library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parent / "build" / "shortseq_torch"
+_HOST_SRC = _PKG.parent / "csrc" / "fastq_index.cpp"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             "-pthread"]
+
+_lock = threading.Lock()
+_cuda = None
+
+
+def isa_token() -> str:
+    """Host-ISA part of the host library's name: it is built with
+    -march=native, so a build directory shared by unlike hosts must not
+    hand one host's library to another (from shortseq_tpu/native_build.py)."""
+    import platform
+
+    probe = platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    probe += line
+                    break
+    except OSError:
+        pass
+    return hashlib.sha256(probe.encode()).hexdigest()[:8]
+
+
+def _digest(sources, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(cmd, out: Path, timeout: int) -> subprocess.CompletedProcess:
+    """Run a compiler into a private temporary name and publish it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    try:
+        proc = subprocess.run(cmd + ["-o", str(tmp)], capture_output=True,
+                              text=True, timeout=timeout)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        return proc
+    finally:
+        tmp.unlink(missing_ok=True)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH): the CUDA "
+            "kernels of shortseq_torch cannot be built")
+    return found
+
+
+def build_cuda() -> Path:
+    """Path of the kernels' shared library, compiling it if needed.
+    Raises RuntimeError with nvcc's stderr when the build fails."""
+    sources = sorted((_PKG / "csrc").glob("*.cu"))
+    out = BUILD_DIR / f"libssq_kernels_{_digest(sources, NVCC_FLAGS)}.so"
+    if out.exists():
+        return out
+    proc = _compile([_nvcc(), *NVCC_FLAGS, *map(str, sources)], out, 600)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}) building "
+            f"{', '.join(s.name for s in sources)}:\n{proc.stderr}")
+    return out
+
+
+def build_host() -> Path | None:
+    """Path of the host library, or None when it cannot be built here."""
+    if not _HOST_SRC.exists():
+        return None
+    flags = [*GXX_FLAGS, isa_token()]
+    out = BUILD_DIR / f"libssq_host_{_digest([_HOST_SRC], flags)}.so"
+    if out.exists():
+        return out
+    try:
+        proc = _compile(["g++", *GXX_FLAGS, str(_HOST_SRC)], out, 180)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out if proc.returncode == 0 else None
+
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+_CUDA_SIGNATURES = {
+    # x, lengths, words, ok, n, w, pad_valid, stream
+    "ssq_pack_validate": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # a, b, out, n, m, w, stream
+    "ssq_pairwise_hamming": [_P, _P, _P, _I64, _I64, _I32, _P],
+    # dist, a_len, a_gid, a_rows, len, gid, idx, cnt, rows, u,
+    # threshold, k, stream
+    "ssq_neighbor_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                             _I32, _I32, _P],
+}
+
+
+def cuda_lib():
+    """The loaded kernels' library, built on first call.  Raises when the
+    build or the load fails."""
+    global _cuda
+    with _lock:
+        if _cuda is None:
+            lib = ctypes.CDLL(str(build_cuda()))
+            for name, argtypes in _CUDA_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.ssq_error_string.argtypes = [ctypes.c_int]
+            lib.ssq_error_string.restype = ctypes.c_char_p
+            _cuda = lib
+        return _cuda
+
+
+def launch(name: str, *args) -> None:
+    """Call one kernel entry point on the current CUDA stream and raise
+    if the launch reports an error."""
+    lib = cuda_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.ssq_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def check_operand(t, name: str, dtype, ndim: int, device) -> None:
+    """Raise unless `t` is a contiguous tensor of the given dtype and rank
+    on `device`: the kernels read raw pointers with these assumptions."""
+    if t.dtype != dtype or t.dim() != ndim:
+        raise TypeError(f"{name}: expected a {ndim}-D {dtype} tensor, got "
+                        f"{t.dim()}-D {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

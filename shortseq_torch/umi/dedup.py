@@ -1,0 +1,792 @@
+"""UMI deduplication: batched pairwise-hamming clustering, in PyTorch.
+
+Counterpart of shortseq_tpu/umi/dedup.py with the same methods and the
+same labels and representatives, byte for byte:
+
+  unique       - exact UMIs only (one cluster per UMI)
+  cluster      - connected components of the <=threshold hamming graph
+  adjacency    - greedy: highest-count node absorbs its direct neighbours,
+                 repeat on the remainder
+  directional  - edge u->v only if count(u) >= 2*count(v) - 1; clusters
+                 are BFS trees from high-count roots (umi_tools' default)
+
+Pipeline:
+
+  group     - unique (insert, UMI) keys + counts + per-item inverse via
+              the threaded native hash counter (_unique_rows, host); a
+              uniform-length matrix path, a length-bucketed ragged path,
+              and the per-read Python dict path when the native library
+              is missing.
+  pack      - the unique UMIs are packed and validated on `device`
+              (kernel A, ops/bitpack.py).
+  adjacency - for each row block, kernel B writes the [block, U] hamming
+              slab into one preallocated buffer and kernel C reduces it to
+              each row's first k neighbour columns and its true neighbour
+              count; only those cross to the host.  Rows with more than k
+              neighbours are re-extracted at _OVERFLOW_K, and rows beyond
+              that take a dense mask fetch.
+  collapse  - host graph walk over the sparse lists, O(edges).
+
+`device` is explicit everywhere: "cuda" runs the kernels and raises when
+there is no card; "cpu" runs their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..constants import MAX_64_NT
+from ..ops.bitpack import pack_and_validate_rows
+from ..ops.lanes import from_numpy_u32
+from ..ops.pairwise import hamming_pairwise_tiled
+
+# Memory budget for one pairwise row block: block_rows * U int32 distances
+# stay under ~1 GiB (16384^2 * 4 B).
+_PAIR_BUDGET = 16384 * 16384
+
+_METHODS = ("unique", "cluster", "adjacency", "directional")
+
+# Per-row neighbour cap of the extraction (kernel C).  UMI graphs are
+# sparse; rows over the cap are re-extracted in batches of
+# _DENSE_ROWS_BATCH at _OVERFLOW_K, and only rows beyond THAT (threshold
+# >= 2 pathologies) take a dense mask fetch.
+_NEIGHBOR_K = 16
+_OVERFLOW_K = 128
+_DENSE_ROWS_BATCH = 256
+
+
+def _resolve_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return device
+
+
+def _pack_validate_matrix(mat, lengths, device):
+    """Pack an [N, <=32] uint8 UMI byte matrix -> [N, 2] int32 words on
+    `device` (kernel A), raising the reference's error on any invalid
+    base.  Pad bytes are 0x00, which fails the bloom, so the length mask
+    is on (pad_valid=False)."""
+    from ..constants import UNSUPPORTED_BASE_MSG
+
+    width = 32
+    if mat.shape[1] != width:
+        mat = np.pad(mat, ((0, 0), (0, width - mat.shape[1])))
+    lengths = np.ascontiguousarray(lengths, np.int32)
+    words, ok = pack_and_validate_rows(
+        np.ascontiguousarray(mat).view(np.uint32), lengths, device)
+    ok = ok.cpu().numpy()
+    if not ok.all():
+        i = int(np.argmin(ok))
+        bad = mat[i, :lengths[i]].tobytes().decode("ascii", "replace")
+        raise Exception(f"{UNSUPPORTED_BASE_MSG} in UMI {bad!r}")
+    return words
+
+
+def _pack_validate_umis(uniq, device):
+    """Pack a list of unique UMI bytes -> ([U, 2] words on `device`, [U]
+    lengths), raising the reference's error on any invalid base."""
+    width = 32
+    lengths = np.fromiter(map(len, uniq), np.int32, len(uniq))
+    if lengths.size and lengths.max() > MAX_64_NT:
+        raise ValueError("UMIs longer than 32 nt are not supported")
+    mat = np.zeros((len(uniq), width), np.uint8)
+    if lengths.size and lengths.min() == lengths.max():
+        # Fixed-length UMIs: one join + reshape instead of a Python loop.
+        mat[:, :lengths[0]] = np.frombuffer(
+            b"".join(uniq), np.uint8).reshape(len(uniq), lengths[0])
+    else:
+        for i, u in enumerate(uniq):
+            mat[i, :len(u)] = np.frombuffer(u, np.uint8)
+    return _pack_validate_matrix(mat, lengths, device), lengths
+
+
+def _unique_rows(mat):
+    """np.unique(mat, axis=0, return_counts+inverse) in global
+    first-occurrence order, via the threaded native hash counter: returns
+    (unique [M, L] uint8, counts [M] int64, inverse [N] int64), or None
+    when the native library is unavailable."""
+    from ..io.native import host_count_native
+
+    n, ncol = mat.shape
+    if ncol == 0:
+        # Zero-width rows are all equal.
+        return (np.zeros((1, 0), np.uint8), np.array([n], np.int64),
+                np.zeros(n, np.int64))
+    pad = -ncol % 4
+    if pad:
+        mat = np.pad(mat, ((0, 0), (0, pad)))
+    words = np.ascontiguousarray(mat).view(np.uint32)
+    res = host_count_native(words, np.full(n, ncol, np.int32))
+    if res is None:
+        return None
+    uw, _, counts, inv = res
+    m = len(counts)
+    # The native table is first-occurrence-ordered per hash partition;
+    # re-rank globally.  Reversed fancy assignment keeps the SMALLEST
+    # input index per unique id (later writes win, so write descending).
+    first = np.empty(m, np.int64)
+    first[inv[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(m, np.int64)
+    rank[order] = np.arange(m, dtype=np.int64)
+    uniq_mat = uw.view(np.uint8).reshape(m, ncol + pad)[:, :ncol][order]
+    return np.ascontiguousarray(uniq_mat), counts[order], rank[inv]
+
+
+# --- Kernel C: neighbour extraction -----------------------------------------
+
+
+def _adjacency(dist, a_lengths, a_gids, a_rows, lengths, gids,
+               threshold: int) -> torch.Tensor:
+    """[B, U] bool: dist <= threshold, equal length, equal group id, and
+    not the row itself (a_rows are the rows' global column ids)."""
+    cols = torch.arange(dist.shape[1], dtype=torch.int32, device=dist.device)
+    return ((dist <= threshold)
+            & (a_lengths[:, None] == lengths[None, :])
+            & (a_gids[:, None] == gids[None, :])
+            & (cols[None, :] != a_rows[:, None]))
+
+
+def neighbor_extract_plain(dist, a_lengths, a_gids, a_rows, lengths, gids,
+                           threshold: int, k: int):
+    """Plain PyTorch version of kernel C: (idx [B, k] int32, each row's
+    first k neighbour columns ascending with empty slots = U; cnt [B]
+    int32, the true neighbour count)."""
+    b, u = dist.shape
+    adj = _adjacency(dist, a_lengths, a_gids, a_rows, lengths, gids,
+                     threshold)
+    cnt = adj.sum(dim=1, dtype=torch.int32)
+    pos = adj.cumsum(dim=1, dtype=torch.int32) - 1
+    r, c = (adj & (pos < k)).nonzero(as_tuple=True)
+    idx = torch.full((b, k), u, dtype=torch.int32, device=dist.device)
+    idx[r, pos[r, c].long()] = c.to(torch.int32)
+    return idx, cnt
+
+
+def neighbor_extract(dist, a_lengths, a_gids, a_rows, lengths, gids,
+                     threshold: int, k: int):
+    """Kernel C: the [B, U] int32 distance slab -> (idx [B, k], cnt [B]),
+    the same encoding as the JAX package's _adjacency_score +
+    _extract_ascending.  A CUDA slab launches the kernel; a CPU slab takes
+    the plain version."""
+    if dist.device.type == "cpu":
+        return neighbor_extract_plain(dist, a_lengths, a_gids, a_rows,
+                                      lengths, gids, threshold, k)
+    dev = dist.device
+    _build.check_operand(dist, "dist", torch.int32, 2, dev)
+    b, u = dist.shape
+    for name, t, n in (("a_lengths", a_lengths, b), ("a_gids", a_gids, b),
+                       ("a_rows", a_rows, b), ("lengths", lengths, u),
+                       ("gids", gids, u)):
+        _build.check_operand(t, name, torch.int32, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    cnt = torch.empty(b, dtype=torch.int32, device=dev)
+    _build.launch("ssq_neighbor_extract", dist.data_ptr(),
+                  a_lengths.data_ptr(), a_gids.data_ptr(), a_rows.data_ptr(),
+                  lengths.data_ptr(), gids.data_ptr(), idx.data_ptr(),
+                  cnt.data_ptr(), b, u, int(threshold), int(k))
+    neighbor_extract.launches += 1
+    return idx, cnt
+
+
+neighbor_extract.launches = 0
+
+
+def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
+                    device):
+    """Sparse adjacency: neighbours[i] = indices j != i with
+    hamming(i, j) <= threshold, equal lengths, and (optionally) equal
+    group ids.  `words` is an int32 tensor or a numpy uint32 array.
+    Each [block, U] distance slab is computed (kernel B) AND reduced
+    (kernel C) on `device`; host memory and transfer are O(U * k + edges),
+    never O(U^2)."""
+    device = torch.device(device)
+    u = len(lengths)
+    if u == 0:
+        return []
+    lengths = np.asarray(lengths)
+    if block is None:
+        block = max(256, min(u, _PAIR_BUDGET // max(u, 1)))
+        # Multiple of 128, as in the JAX package, so both packages pad to
+        # the same column count (kernel C itself needs no rounding).
+        block = -(-block // 128) * 128
+    k = min(_NEIGHBOR_K, u)
+    # Pad the row count to a multiple of block with rows that match
+    # nothing real (length -1); their lists are sliced off below.
+    u_pad = -(-u // block) * block
+    if isinstance(words, np.ndarray):
+        words = from_numpy_u32(words)
+    words = words.to(device)
+    words_d = torch.zeros((u_pad, words.shape[1]), dtype=torch.int32,
+                          device=device)
+    words_d[:u] = words
+    lengths_d = torch.full((u_pad,), -1, dtype=torch.int32, device=device)
+    lengths_d[:u] = torch.from_numpy(lengths.astype(np.int32)).to(device)
+    gids_d = torch.zeros(u_pad, dtype=torch.int32, device=device)
+    if gids is not None:
+        gids_d[:u] = torch.from_numpy(
+            np.asarray(gids).astype(np.int32)).to(device)
+    rows_d = torch.arange(u_pad, dtype=torch.int32, device=device)
+
+    # One slab for every block: allocated once per call, not per block.
+    slab = torch.empty((block, u_pad), dtype=torch.int32, device=device)
+    idx_parts, cnt_parts = [], []
+    for lo in range(0, u_pad, block):
+        hi = lo + block
+        hamming_pairwise_tiled(words_d[lo:hi], words_d, out=slab)
+        idx_b, cnt_b = neighbor_extract(
+            slab, lengths_d[lo:hi], gids_d[lo:hi], rows_d[lo:hi],
+            lengths_d, gids_d, threshold, k)
+        idx_parts.append(idx_b)
+        cnt_parts.append(cnt_b)
+    del slab
+    idx = torch.cat(idx_parts).cpu().numpy()[:u]
+    cnt = torch.cat(cnt_parts).cpu().numpy()[:u]
+    # Empty slots carry the padded column count.
+    valid = idx < u_pad
+
+    # Columns come out ascending per row; boolean masking flattens
+    # row-major, so one mask + split materializes every per-row list.
+    flat = idx[valid]
+    neighbors = np.split(flat, np.cumsum(valid.sum(axis=1))[:-1])
+
+    # Rows with more than k neighbours are re-extracted in fixed-size
+    # batches at a larger cap; rows beyond even that (threshold >= 2
+    # pathologies; threshold 1 is bounded by 3L <= 96 < _OVERFLOW_K) take
+    # one dense mask fetch per batch.
+    over = np.flatnonzero(cnt > k)
+    if over.size:
+        k2 = min(_OVERFLOW_K, u_pad)
+        p = _DENSE_ROWS_BATCH
+        slab = torch.empty((p, u_pad), dtype=torch.int32, device=device)
+
+        def batch(sel):
+            """Kernel B for up to p rows into `slab` (short batches repeat
+            row 0); returns the batch's (lengths, gids, row ids)."""
+            sel_pad = np.zeros(p, np.int64)
+            sel_pad[:sel.size] = sel
+            sel_d = torch.from_numpy(sel_pad).to(device)
+            hamming_pairwise_tiled(words_d[sel_d], words_d, out=slab)
+            return (lengths_d[sel_d], gids_d[sel_d],
+                    sel_d.to(torch.int32))
+
+        still = []
+        for lo in range(0, over.size, p):
+            sel = over[lo:lo + p]
+            idx2, cnt2 = neighbor_extract(slab, *batch(sel), lengths_d,
+                                          gids_d, threshold, k2)
+            idx2, cnt2 = idx2.cpu().numpy(), cnt2.cpu().numpy()
+            for i, r in enumerate(sel):
+                if cnt2[i] <= k2:
+                    neighbors[r] = idx2[i][idx2[i] < u_pad]
+                else:
+                    still.append(r)
+        for lo in range(0, len(still), p):
+            sel = np.asarray(still[lo:lo + p], np.int64)
+            adj = _adjacency(slab, *batch(sel), lengths_d, gids_d,
+                             threshold).cpu().numpy()
+            for i, r in enumerate(sel):
+                neighbors[r] = np.flatnonzero(adj[i][:u])
+    return neighbors
+
+
+# --- Host collapse (unchanged from the JAX package) -------------------------
+
+
+def _edge_csr(neighbors):
+    """Sparse lists -> CSR (indptr [U+1] int64, indices [E] int64)."""
+    u = len(neighbors)
+    deg = np.fromiter(map(len, neighbors), np.int64, u)
+    indptr = np.zeros(u + 1, np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    if int(indptr[-1]) == 0:
+        return indptr, np.zeros(0, np.int64)
+    indices = np.concatenate([np.asarray(x, np.int64)
+                              for x in neighbors if len(x)])
+    return indptr, indices
+
+
+def _components(neighbors):
+    """Connected components over sparse lists; each node's label is its
+    component's MINIMUM node index.  Vectorized min-label propagation
+    with pointer-jumping path compression."""
+    u = len(neighbors)
+    labels = np.arange(u, dtype=np.int64)
+    if u == 0:
+        return labels
+    indptr, dst = _edge_csr(neighbors)
+    if len(dst) == 0:
+        return labels
+    src = np.repeat(np.arange(u, dtype=np.int64), np.diff(indptr))
+    while True:
+        m = labels.copy()
+        # Adjacency is symmetric, so one directed pass reaches both ends.
+        np.minimum.at(m, src, labels[dst])
+        # m[i] <= i throughout, so m is a parent forest and jumping
+        # strictly descends.
+        while True:
+            mm = m[m]
+            if np.array_equal(mm, m):
+                break
+            m = mm
+        if np.array_equal(m, labels):
+            return labels
+        labels = m
+
+
+def _greedy_absorb(neighbors, counts, directional: bool):
+    """adjacency / directional collapse over sparse lists: iterate nodes by
+    descending count; an unassigned node roots a cluster and absorbs
+    unassigned neighbours (direct only for adjacency; BFS through
+    count-ordered edges for directional, edge u->v iff
+    counts[u] >= 2 * counts[v] - 1).  Runs in the native library when
+    built; the Python loop below is its behavioural twin."""
+    from ..io.native import greedy_absorb_native
+
+    u = len(neighbors)
+    counts = np.asarray(counts, np.int64)
+    order = np.argsort(-counts, kind="stable")
+    indptr, indices = _edge_csr(neighbors)
+    native = greedy_absorb_native(indptr, indices, counts, order,
+                                  directional)
+    if native is not None:
+        return native
+    labels = np.full(u, -1, np.int64)
+    for root in order:
+        if labels[root] >= 0:
+            continue
+        labels[root] = root
+        frontier = [root]
+        while frontier:
+            node = frontier.pop()
+            for nbr in neighbors[node]:
+                if labels[nbr] >= 0:
+                    continue
+                if directional and counts[node] < 2 * counts[nbr] - 1:
+                    continue
+                labels[nbr] = root
+                if directional:
+                    frontier.append(nbr)
+    return labels
+
+
+def _collapse(neighbors, counts, method):
+    if method == "cluster":
+        return _components(neighbors)
+    return _greedy_absorb(neighbors, counts, method == "directional")
+
+
+def _relabel(roots, counts):
+    """roots -> (dense cluster labels, representative node per cluster =
+    the lowest-index max-count member)."""
+    uniq_roots, labels = np.unique(roots, return_inverse=True)
+    # Sort by (label asc, count desc, index asc); the first row of each
+    # label run is its representative.
+    order = np.lexsort((np.arange(len(roots)), -counts, labels))
+    first = np.searchsorted(labels[order], np.arange(len(uniq_roots)))
+    rep_nodes = order[first]
+    return labels.astype(np.int64), rep_nodes
+
+
+def split_read(read: bytes, len_5p: int, len_3p: int):
+    """(5' UMI, insert, 3' UMI) of one read.  A read that is entirely UMI
+    yields an empty insert."""
+    if len_5p < 0 or len_3p < 0:
+        raise ValueError("UMI lengths must be non-negative")
+    n = len(read)
+    if n < len_5p + len_3p:
+        raise ValueError(
+            f"Read of {n} nt is shorter than the UMI lengths "
+            f"({len_5p} + {len_3p})")
+    umi5 = read[:len_5p]
+    umi3 = read[n - len_3p:] if len_3p else b""
+    insert = read[len_5p:n - len_3p]
+    return umi5, insert, umi3
+
+
+def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
+                    candidates=None, block=None, *, device):
+    """Shared collapse step: returns root per unique key.  `candidates`
+    restricts the (quadratic) adjacency work to the given key indices;
+    keys outside it root themselves."""
+    u = len(lengths)
+    roots = np.arange(u)
+    if method == "unique" or u < 2:
+        return roots
+    if candidates is None:
+        candidates = np.arange(u)
+    if len(candidates) < 2:
+        return roots
+    if len(candidates) < u:
+        words = words[torch.from_numpy(candidates).to(words.device)]
+    sub_gids = gids[candidates] if gids is not None else None
+    neighbors = _neighbor_lists(words, lengths[candidates], threshold,
+                                gids=sub_gids, block=block, device=device)
+    sub_roots = _collapse(neighbors, counts[candidates], method)
+    roots[candidates] = candidates[sub_roots]
+    return roots
+
+
+def dedup_umis(umis, threshold: int = 1, method: str = "directional",
+               _block=None, device="cuda"):
+    """Collapse a list of UMIs (str/bytes), or an [N, L] uint8 matrix,
+    into clusters on `device`.
+
+    Returns (labels, representatives): `labels[i]` is the cluster id of
+    input i (ids are indices into `representatives`), and
+    `representatives[c]` is the highest-count UMI of cluster c (bytes).
+    """
+    import collections
+
+    if method not in _METHODS:
+        raise ValueError(f"Unknown method: {method}")
+    device = _resolve_device(device)
+    if len(umis) == 0:
+        return np.zeros(0, np.int64), []
+
+    # The matrix path returns None only when the native library is
+    # missing; then retrying it with a rebuilt matrix can never succeed.
+    matrix_unavailable = False
+    if isinstance(umis, np.ndarray) and umis.ndim == 2:
+        if umis.dtype != np.uint8:
+            raise TypeError("array input must be a 2-D uint8 UMI matrix")
+        if umis.shape[1] > MAX_64_NT:
+            raise ValueError("UMIs longer than 32 nt are not supported")
+        res = _dedup_umi_matrix(np.ascontiguousarray(umis), method,
+                                threshold, _block, device)
+        if res is not None:
+            return res
+        matrix_unavailable = True
+        umis = [umis[i].tobytes() for i in range(len(umis))]
+
+    norm = [u.encode("ascii") if isinstance(u, str) else bytes(u)
+            for u in umis]
+
+    # Uniform lengths take the single-matrix path; ragged lists the
+    # length-bucketed variant.
+    lengths_all = np.fromiter(map(len, norm), np.int64, len(norm))
+    if not matrix_unavailable and int(lengths_all.max()) <= MAX_64_NT:
+        lng = int(lengths_all[0])
+        if (lengths_all == lng).all():
+            res = _dedup_umi_matrix(
+                np.frombuffer(b"".join(norm), np.uint8).reshape(
+                    len(norm), lng),
+                method, threshold, _block, device)
+        else:
+            res = _dedup_umis_ragged(norm, lengths_all, method, threshold,
+                                     _block, device)
+        if res is not None:
+            return res
+
+    counter = collections.Counter(norm)
+    uniq = list(counter)
+    index = {u: i for i, u in enumerate(uniq)}
+    inverse = np.fromiter((index[u] for u in norm), np.int64, len(norm))
+    counts = np.fromiter((counter[u] for u in uniq), np.int64, len(uniq))
+
+    words, lengths = _pack_validate_umis(uniq, device)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            block=_block, device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    return labels_u[inverse], [uniq[i] for i in rep_nodes]
+
+
+def _dedup_umi_matrix(mat, method, threshold, block, device):
+    """Vectorized dedup_umis for an [N, L] uint8 UMI matrix.  Returns
+    None when the native library is unavailable."""
+    res = _unique_rows(mat)
+    if res is None:
+        return None
+    uniq_mat, counts, inverse = res
+    lengths = np.full(len(counts), mat.shape[1], np.int32)
+    words = _pack_validate_matrix(uniq_mat, lengths, device)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            block=block, device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    return labels_u[inverse], [uniq_mat[i].tobytes() for i in rep_nodes]
+
+
+def _length_buckets(lengths_all):
+    """Yield (length, ascending original indices) per distinct length in
+    ascending length order: one stable argsort + searchsorted split.
+    Stability keeps each bucket's indices ascending, which the
+    first-occurrence re-ranking in the ragged paths relies on."""
+    order = np.argsort(lengths_all, kind="stable")
+    sorted_lens = lengths_all[order]
+    uniq_lens = np.unique(sorted_lens)
+    bounds = np.searchsorted(sorted_lens, uniq_lens)
+    bounds = np.append(bounds, len(order))
+    for i, lng in enumerate(uniq_lens):
+        yield int(lng), order[bounds[i]:bounds[i + 1]]
+
+
+def _flat_rows(norm, lengths_all):
+    """One concatenation of a ragged bytes list + row offsets, so each
+    length bucket's matrix is one vectorized numpy gather."""
+    flat = np.frombuffer(b"".join(norm), np.uint8)
+    offsets = np.zeros(len(norm) + 1, np.int64)
+    np.cumsum(lengths_all, out=offsets[1:])
+    return flat, offsets[:-1]
+
+
+def _dedup_umis_ragged(norm, lengths_all, method, threshold, block, device):
+    """Length-bucketed vectorized dedup_umis for ragged UMI lists: UMIs of
+    different lengths never cluster, so grouping decomposes exactly by
+    length; bucket uniques are re-ranked into global first-occurrence
+    order for dict-path-identical labels and representatives.  Returns
+    None when the native library is unavailable."""
+    n = len(norm)
+    width = 32
+    mats, counts_parts, first_parts, len_parts = [], [], [], []
+    inverse_global = np.empty(n, np.int64)
+    u_total = 0
+    flat, offsets = _flat_rows(norm, lengths_all)
+    for lng, idx in _length_buckets(lengths_all):
+        mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
+        res = _unique_rows(mat)
+        if res is None:
+            return None
+        uniq_mat, counts, inverse = res
+        m = len(counts)
+        first = np.empty(m, np.int64)
+        first[inverse[::-1]] = idx[::-1]
+        pad = np.zeros((m, width), np.uint8)
+        pad[:, :lng] = uniq_mat
+        mats.append(pad)
+        counts_parts.append(counts)
+        first_parts.append(first)
+        len_parts.append(np.full(m, lng, np.int32))
+        inverse_global[idx] = inverse + u_total
+        u_total += m
+    first = np.concatenate(first_parts)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(u_total, np.int64)
+    rank[order] = np.arange(u_total, dtype=np.int64)
+    mat = np.ascontiguousarray(np.concatenate(mats)[order])
+    counts = np.concatenate(counts_parts)[order]
+    lengths = np.concatenate(len_parts)[order]
+    inverse_global = rank[inverse_global]
+    words = _pack_validate_matrix(mat, lengths, device)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            block=block, device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    reps = [mat[i, :lengths[i]].tobytes() for i in rep_nodes]
+    return labels_u[inverse_global], reps
+
+
+def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
+                        device):
+    """Vectorized dedup_reads for an [N, L] uint8 read matrix: a unique
+    (insert, UMI) key is exactly a unique read, so grouping is one native
+    hash-count with inverse over the read matrix, and gid assignment a
+    second one over the unique reads' insert columns.  Returns None when
+    the native library is unavailable."""
+    length = mat.shape[1]
+    res = _unique_rows(mat)
+    if res is None:
+        return None
+    uniq_mat, counts, inverse = res
+    ins_lo, ins_hi = len_5p, length - len_3p
+    res_g = _unique_rows(np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
+    if res_g is None:
+        return None
+    gids = res_g[2]
+    if len_3p:
+        umi_mat = np.ascontiguousarray(np.concatenate(
+            [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1))
+    else:
+        umi_mat = np.ascontiguousarray(uniq_mat[:, :len_5p])
+    lengths = np.full(len(counts), len_5p + len_3p, np.int32)
+    words = _pack_validate_matrix(umi_mat, lengths, device)
+
+    group_sizes = np.bincount(gids)
+    candidates = np.flatnonzero(group_sizes[gids] >= 2)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            gids=gids, candidates=candidates, block=block,
+                            device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    molecules = [(uniq_mat[i, ins_lo:ins_hi].tobytes(),
+                  umi_mat[i].tobytes()) for i in rep_nodes]
+    return labels_u[inverse], molecules
+
+
+def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
+                        threshold, block, device):
+    """Length-bucketed vectorized dedup_reads for ragged read lists.
+    Reads of different lengths never share an insert, so grouping
+    decomposes exactly by read length; per-bucket uniques are re-ranked
+    into GLOBAL first-occurrence order so labels and molecules stay
+    identical to the Python dict path.  Returns None when the native
+    library is unavailable."""
+    n = len(norm)
+    umi_len = len_5p + len_3p
+    per_bucket = []  # (uniq_mat, ins_lo, ins_hi): molecule extraction
+    umi_parts, counts_parts, gids_parts, first_parts = [], [], [], []
+    bucket_parts, row_parts = [], []
+    inverse_global = np.empty(n, np.int64)
+    gid_offset = 0
+    u_total = 0
+    flat, offsets = _flat_rows(norm, lengths_all)
+    for bi, (lng, idx) in enumerate(_length_buckets(lengths_all)):
+        mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
+        res = _unique_rows(mat)
+        if res is None:
+            return None
+        uniq_mat, counts, inverse = res
+        m = len(counts)
+        ins_lo, ins_hi = len_5p, lng - len_3p
+        res_g = _unique_rows(np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
+        if res_g is None:
+            return None
+        # idx is ascending, so within-bucket first occurrence IS the
+        # global one among this bucket's reads.
+        first = np.empty(m, np.int64)
+        first[inverse[::-1]] = idx[::-1]
+        if len_3p:
+            umi_mat = np.concatenate(
+                [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1)
+        else:
+            umi_mat = uniq_mat[:, :len_5p]
+        inverse_global[idx] = inverse + u_total
+        umi_parts.append(umi_mat)
+        counts_parts.append(counts)
+        gids_parts.append(res_g[2] + gid_offset)
+        first_parts.append(first)
+        bucket_parts.append(np.full(m, bi, np.int64))
+        row_parts.append(np.arange(m, dtype=np.int64))
+        per_bucket.append((uniq_mat, ins_lo, ins_hi))
+        gid_offset += len(res_g[1])
+        u_total += m
+    first = np.concatenate(first_parts)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(u_total, np.int64)
+    rank[order] = np.arange(u_total, dtype=np.int64)
+    counts = np.concatenate(counts_parts)[order]
+    gids = np.concatenate(gids_parts)[order]
+    umi_mat = np.ascontiguousarray(np.concatenate(umi_parts)[order])
+    bucket_of = np.concatenate(bucket_parts)[order]
+    row_of = np.concatenate(row_parts)[order]
+    inverse_global = rank[inverse_global]
+    lengths = np.full(u_total, umi_len, np.int32)
+    words = _pack_validate_matrix(umi_mat, lengths, device)
+
+    group_sizes = np.bincount(gids)
+    candidates = np.flatnonzero(group_sizes[gids] >= 2)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            gids=gids, candidates=candidates, block=block,
+                            device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    molecules = []
+    for i in rep_nodes:
+        uniq_mat_b, ins_lo, ins_hi = per_bucket[bucket_of[i]]
+        row = uniq_mat_b[row_of[i]]
+        molecules.append((row[ins_lo:ins_hi].tobytes(),
+                          umi_mat[i].tobytes()))
+    return labels_u[inverse_global], molecules
+
+
+def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
+                threshold: int = 1, method: str = "directional",
+                _block=None, device="cuda"):
+    """Full UMI read deduplication on `device`: reads carrying UMIs on the
+    5'/3' ends are grouped by insert sequence, and within each group the
+    UMIs are clustered; each cluster is one original molecule.
+
+    Only keys whose insert group holds >= 2 distinct UMIs do quadratic
+    work, in memory-bounded row blocks with a group-id mask so edges
+    never cross inserts.
+
+    Args:
+      reads: list of str/bytes (UMI(s) still attached), or an [N, L]
+        uint8 matrix of uniform-length reads.
+      len_5p/len_3p: UMI lengths clipped from each end.
+      device: "cuda" (the kernels; raises without a card) or "cpu".
+    Returns:
+      (labels, molecules): `labels[i]` is the molecule id of read i;
+      `molecules[m]` is `(insert_bytes, umi_bytes)` for molecule m (the
+      highest-count UMI of its cluster).
+    """
+    import collections
+
+    if method not in _METHODS:
+        raise ValueError(f"Unknown method: {method}")
+    if len_5p < 0 or len_3p < 0:
+        raise ValueError("UMI lengths must be non-negative")
+    if len_5p + len_3p == 0:
+        raise ValueError("at least one UMI length must be positive")
+    if len_5p + len_3p > MAX_64_NT:
+        raise ValueError("UMIs longer than 32 nt are not supported")
+    device = _resolve_device(device)
+    if len(reads) == 0:
+        return np.zeros(0, np.int64), []
+
+    matrix_unavailable = False  # as in dedup_umis
+    if isinstance(reads, np.ndarray) and reads.ndim == 2:
+        if reads.dtype != np.uint8:
+            raise TypeError("array input must be a 2-D uint8 read matrix")
+        if reads.shape[1] < len_5p + len_3p:
+            raise ValueError(
+                f"Read of {reads.shape[1]} nt is shorter than the UMI "
+                f"lengths ({len_5p} + {len_3p})")
+        res = _dedup_reads_matrix(np.ascontiguousarray(reads), len_5p,
+                                  len_3p, method, threshold, _block, device)
+        if res is not None:
+            return res
+        matrix_unavailable = True
+        reads = [reads[i].tobytes() for i in range(len(reads))]
+
+    norm = [r.encode("ascii") if isinstance(r, str) else bytes(r)
+            for r in reads]
+
+    # A read shorter than the UMI lengths keeps the Python path so
+    # split_read raises its reference error on the FIRST offending read.
+    lengths_all = np.fromiter(map(len, norm), np.int64, len(norm))
+    if not matrix_unavailable and int(lengths_all.min()) >= len_5p + len_3p:
+        lng = int(lengths_all[0])
+        if (lengths_all == lng).all():
+            res = _dedup_reads_matrix(
+                np.frombuffer(b"".join(norm), np.uint8).reshape(
+                    len(norm), lng),
+                len_5p, len_3p, method, threshold, _block, device)
+        else:
+            res = _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p,
+                                      method, threshold, _block, device)
+        if res is not None:
+            return res
+
+    gid_of = {}
+    inserts = []
+    keys = []  # per-read (gid, umi)
+    for r in norm:
+        u5, insert, u3 = split_read(r, len_5p, len_3p)
+        gid = gid_of.setdefault(insert, len(gid_of))
+        if gid == len(inserts):
+            inserts.append(insert)
+        keys.append((gid, u5 + u3))
+
+    counter = collections.Counter(keys)
+    uniq = list(counter)
+    index = {k: i for i, k in enumerate(uniq)}
+    inverse = np.fromiter((index[k] for k in keys), np.int64, len(keys))
+    counts = np.fromiter((counter[k] for k in uniq), np.int64, len(uniq))
+    gids = np.fromiter((g for g, _ in uniq), np.int64, len(uniq))
+
+    # Every unique UMI goes through the packed validity check.
+    words, lengths = _pack_validate_umis([u for _, u in uniq], device)
+
+    # Only keys in multi-key groups can merge; everything else roots itself.
+    group_sizes = np.bincount(gids, minlength=len(inserts))
+    candidates = np.flatnonzero(group_sizes[gids] >= 2)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            gids=gids, candidates=candidates, block=_block,
+                            device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    molecules = [(inserts[uniq[i][0]], uniq[i][1]) for i in rep_nodes]
+    return labels_u[inverse], molecules

@@ -1,0 +1,154 @@
+"""shortseq_torch neighbour lists (kernels B + C, plain versions on the
+CPU) against the JAX package's _neighbor_lists on identical packed words:
+group ids, pad rows, several block sizes, the overflow tier and the dense
+tier.  Mirrors tests/test_umi.py:257-320,474-490.  Exact comparisons."""
+
+import numpy as np
+import pytest
+import torch
+
+import shortseq_torch.umi.dedup as td
+import shortseq_tpu.umi.dedup as jd
+
+ALPHA = np.frombuffer(b"ACGT", np.uint8)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run on the card")
+    return torch.device("cuda")
+
+
+def _packed(umis):
+    """Identical inputs for both packages: JAX-packed words as uint32."""
+    words, lengths = jd._pack_validate_umis(umis)
+    return np.asarray(words), lengths
+
+
+def _variant_umis(u, length, seed, frac=0.5):
+    """u UMIs of one length, a fraction of them one substitution away
+    from an earlier one (real neighbours), first occurrences kept."""
+    rng = np.random.default_rng(seed)
+    mat = ALPHA[rng.integers(0, 4, size=(u, length))]
+    var = rng.random(u) < frac
+    src = rng.integers(0, u, size=u)
+    mat[var] = mat[src[var]]
+    pos = rng.integers(0, length, size=u)
+    mat[var, pos[var]] = ALPHA[rng.integers(0, 4, size=u)[var]]
+    return list(dict.fromkeys(mat[i].tobytes() for i in range(u)))
+
+
+def _assert_lists_equal(got, want):
+    assert len(got) == len(want)
+    for r, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(np.asarray(g, np.int64),
+                                      np.asarray(w, np.int64), err_msg=r)
+
+
+@pytest.mark.parametrize("block", [None, 5, 64, 300])
+@pytest.mark.parametrize("threshold", [1, 2])
+def test_matches_jax_blocks(block, threshold):
+    words, lengths = _packed(_variant_umis(257, 6, seed=threshold))
+    got = td._neighbor_lists(words, lengths, threshold, block=block,
+                             device="cpu")
+    want = jd._neighbor_lists(words, lengths, threshold, block=block)
+    _assert_lists_equal(got, want)
+    assert sum(map(len, want)) > 0
+
+
+@pytest.mark.parametrize("u", [127, 128, 129])
+def test_matches_jax_with_gids_and_mixed_lengths(u):
+    rng = np.random.default_rng(u)
+    umis = _variant_umis(u, 8, seed=u)
+    # Mixed lengths: some UMIs cut to 7 nt never neighbour the 8-nt ones.
+    umis = [x[:7] if rng.random() < 0.2 else x for x in umis]
+    words, lengths = _packed(umis)
+    gids = rng.integers(0, 3, size=len(umis))
+    got = td._neighbor_lists(words, lengths, 1, gids=gids, device="cpu")
+    want = jd._neighbor_lists(words, lengths, 1, gids=gids)
+    _assert_lists_equal(got, want)
+
+
+def _clique():
+    return [b"AAAA", b"AAAT", b"AAAC", b"AAAG", b"ATAA", b"ACAA", b"AGAA",
+            b"TAAA"]
+
+
+def test_overflow_tier_matches_jax(monkeypatch):
+    words, lengths = _packed(_clique())
+    full = td._neighbor_lists(words, lengths, 2, device="cpu")
+    monkeypatch.setattr(td, "_NEIGHBOR_K", 2)
+    monkeypatch.setattr(jd, "_NEIGHBOR_K", 2)
+    got = td._neighbor_lists(words, lengths, 2, device="cpu")
+    want = jd._neighbor_lists(words, lengths, 2)
+    _assert_lists_equal(got, want)
+    _assert_lists_equal(got, full)
+    assert max(map(len, full)) > 2      # the cap really overflowed
+
+
+def test_dense_tier_matches_jax(monkeypatch):
+    words, lengths = _packed(_clique())
+    full = td._neighbor_lists(words, lengths, 2, device="cpu")
+    for mod in (td, jd):
+        monkeypatch.setattr(mod, "_NEIGHBOR_K", 2)
+        monkeypatch.setattr(mod, "_OVERFLOW_K", 3)
+    got = td._neighbor_lists(words, lengths, 2, device="cpu")
+    want = jd._neighbor_lists(words, lengths, 2)
+    _assert_lists_equal(got, want)
+    _assert_lists_equal(got, full)
+    assert max(map(len, full)) > 3      # the dense tier really ran
+
+
+def _slab(b, u, seed):
+    """Random distance slab with pad columns (length -1), two groups and
+    the rows' own columns, so every mask term matters."""
+    rng = np.random.default_rng(seed)
+    dist = rng.integers(0, 4, size=(b, u)).astype(np.int32)
+    lengths = np.where(rng.random(u) < 0.1, -1, 12).astype(np.int32)
+    gids = rng.integers(0, 2, size=u).astype(np.int32)
+    a_rows = rng.choice(u, size=b, replace=False).astype(np.int32)
+    return dist, lengths[a_rows], gids[a_rows], a_rows, lengths, gids
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_extract_plain_matches_jax_extraction(k):
+    import jax.numpy as jnp
+
+    dist, a_len, a_gid, a_rows, lengths, gids = _slab(40, 256, seed=k)
+    t = [torch.from_numpy(x) for x in (dist, a_len, a_gid, a_rows, lengths,
+                                       gids)]
+    idx, cnt = td.neighbor_extract(*t, 1, k)
+    # The JAX score encoding: U - col on neighbours, 0 elsewhere.
+    u = dist.shape[1]
+    cols = np.arange(u)
+    adj = ((dist <= 1) & (a_len[:, None] == lengths[None, :])
+           & (a_gid[:, None] == gids[None, :])
+           & (cols[None, :] != a_rows[:, None]))
+    score = np.where(adj, u - cols, 0).astype(np.int32)
+    want_idx = np.asarray(jd._extract_ascending(jnp.asarray(score), k))
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_array_equal(cnt.numpy(), adj.sum(axis=1))
+    assert (cnt.numpy() > k).any()
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_extract_kernel_matches_plain_on_card(cuda, k):
+    host = _slab(300, 5000, seed=k)
+    t = [torch.from_numpy(x).to(cuda) for x in host]
+    before = td.neighbor_extract.launches
+    got = td.neighbor_extract(*t, 1, k)
+    assert td.neighbor_extract.launches == before + 1
+    want = td.neighbor_extract_plain(*t, 1, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_neighbor_lists_card_matches_cpu(cuda, monkeypatch):
+    words, lengths = _packed(_variant_umis(3000, 10, seed=3))
+    want = td._neighbor_lists(words, lengths, 2, device="cpu")
+    got = td._neighbor_lists(words, lengths, 2, device=cuda)
+    _assert_lists_equal(got, want)
+    monkeypatch.setattr(td, "_NEIGHBOR_K", 2)
+    monkeypatch.setattr(td, "_OVERFLOW_K", 3)
+    got = td._neighbor_lists(words, lengths, 2, device=cuda)
+    _assert_lists_equal(got, want)

@@ -1,0 +1,94 @@
+"""shortseq_torch as a package: it imports with jax blocked, names neither
+jax nor shortseq_tpu in any import, builds nothing at import, never hides
+a missing card behind the CPU, and its chip smoke script refuses to run
+without one."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "shortseq_torch"
+BLOCKED = ("jax", "jaxlib", "shortseq_tpu")
+
+
+def _run(code, cwd=ROOT):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import shortseq_torch, shortseq_torch.umi.dedup\n"
+        "import shortseq_torch.__main__, shortseq_torch.io.fastq\n"
+        "import shortseq_torch.ops\n"
+        "from shortseq_torch import _build\n"
+        "from shortseq_torch.io import native\n"
+        "assert _build._cuda is None and not native._bound\n"
+        "print(shortseq_torch.__version__)\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip()
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in BLOCKED, (path, name)
+
+
+def test_cuda_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from shortseq_torch import dedup_reads, dedup_umis
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dedup_umis([b"AAAA", b"AAAT"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dedup_reads(["AAAACGT"], len_5p=4, device="cuda")
+
+
+def test_kernel_wrappers_count_no_cpu_launches():
+    from shortseq_torch.ops import (hamming_pairwise_tiled,
+                                    pack_and_validate_u32)
+    from shortseq_torch.umi.dedup import dedup_umis, neighbor_extract
+
+    wrappers = (pack_and_validate_u32, hamming_pairwise_tiled,
+                neighbor_extract)
+    before = [w.launches for w in wrappers]
+    dedup_umis([b"AAAA", b"AAAT", b"GGGG"], device="cpu")
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script = tmp_path / "chip_smoke.py"
+    proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert not any(line.lstrip().startswith("{")
+                   for line in proc.stdout.splitlines()), proc.stdout
