@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Drive shortseq_torch's UMI slice once on one CUDA card and check it.
+"""Drive shortseq_torch's slices once on one CUDA card and check them.
 
 Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A, B, C (nvcc, sm_90a) and the host library (g++)
-             from this checkout's sources, with the seconds each took
+  build      kernels A, B, C, D (nvcc, sm_90a, one process per source),
+             the host library and the object extension (g++) from this
+             checkout's sources, all started together, with the seconds
+             each took, and the object backend
   kernels    each kernel against its plain PyTorch version on the card at
-             the slice's shapes (integers: exact equality), with median
-             CUDA-event times over 7 runs, L2 flushed before each run
+             the slices' shapes (integers: exact equality), with median
+             CUDA-event times over 7 runs, L2 flushed before each run;
+             for D also the sort and the whole unique_count
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
              threshold 1): a valid partition, a 512-row slab of neighbour
              lists against the plain pairwise check, and a 5,000-unique
@@ -19,9 +22,23 @@ Phases, one line each; any failure raises and exits nonzero:
              subprocess, and through dedup_reads in this process: molecule
              count within 5% of the truth, <= 1% split molecules, counts
              summing to the reads, and the CLI's table equal to the API's
-  counters   kernels A, B and C all launched while phases umi_scale and
-             umi_cli drove the main path (counts reset just before), the
-             native host library loaded and the matrix paths taken
+  count      three FASTQ files (10,000,000 reads of 15-32 nt; 2,000,000
+             reads of 150 nt drawn Zipf(1.2) from 200,000 molecules;
+             1,000,000 reads of 0-300 nt from a 300,000-read pool) through
+             read_and_count_fastq_table with engine="device" on the card
+             and engine="host": equal live tables, total() = reads, equal
+             most_common(20) above its 20th count; for the third file
+             also to_counter() and count_matrix_device (kernel A); the
+             first file again in 256 MiB slices (streamed), equal to the
+             whole-file table; `python -m shortseq_torch count --engine
+             device --top 20` on the second file as a subprocess, equal
+             to the in-process top 20
+  counters   kernels A, B, C and D all launched while phases umi_scale,
+             umi_cli and count drove the main path (counts reset just
+             before each run), D during count and A in count_matrix_device;
+             the native host library loaded, the UMI matrix paths and the
+             count path's device engine, 4-chunk transfer and streamed
+             slices all taken
 
 Before the last line it prints a JSON object of per-kernel results; the
 last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Random
@@ -40,6 +57,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "shortseq_torch/csrc/kernels.cu"
+SOURCE_D = "shortseq_torch/csrc/count.cu"
 
 
 def phase(name, fn, *args):
@@ -97,6 +115,41 @@ def write_fastq(path, mat):
     Path(path).write_bytes(rec.tobytes())
 
 
+def write_fastq_ragged(path, seqs, lengths, chunk=1 << 20):
+    """write_fastq's records for reads of any length: read i is
+    seqs[offsets[i]:offsets[i] + lengths[i]] of one flat uint8 array.
+    Vectorized over chunks of rows."""
+    import numpy as np
+
+    lengths = np.asarray(lengths, np.int64)
+    offsets = np.cumsum(lengths) - lengths
+    with open(path, "wb") as f:
+        for lo in range(0, len(lengths), chunk):
+            ln = lengths[lo:lo + chunk]
+            rec = 2 * ln + 7
+            start = np.cumsum(rec) - rec
+            out = np.full(int(rec.sum()), ord("I"), np.uint8)
+            out[start] = ord("@")
+            out[start + 1] = ord("r")
+            out[start + 2] = ord("\n")
+            out[start + 3 + ln] = ord("\n")
+            out[start + 4 + ln] = ord("+")
+            out[start + 5 + ln] = ord("\n")
+            out[start + 6 + 2 * ln] = ord("\n")
+            col = np.arange(int(ln.sum())) - np.repeat(np.cumsum(ln) - ln, ln)
+            src = np.repeat(offsets[lo:lo + chunk], ln) + col
+            out[np.repeat(start + 3, ln) + col] = seqs[src]
+            f.write(out.tobytes())
+
+
+def zipf_pick(rng, n_keys, size, s=1.2):
+    """size draws from n_keys keys with P(k) proportional to k^-s."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, n_keys + 1, dtype=np.float64) ** s
+    return rng.choice(n_keys, size=size, p=p / p.sum())
+
+
 # --- timing -----------------------------------------------------------------
 
 
@@ -142,18 +195,33 @@ def phase_device(torch, out):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
+    import shortseq_torch
     from shortseq_torch import _build
 
-    t0 = time.perf_counter()
-    cuda = _build.build_cuda()
-    t1 = time.perf_counter()
-    host = _build.build_host()
-    t2 = time.perf_counter()
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    # All compilers start together: nvcc per .cu inside build_cuda, g++
+    # for the host library and the object extension beside it.
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(timed, fn) for fn in
+                (_build.build_cuda, _build.build_host, _build.build_objects)]
+        (cuda, t_cuda), (host, t_host), (objects, t_obj) = \
+            [j.result() for j in jobs]
     if host is None:
         raise RuntimeError("host library (csrc/fastq_index.cpp) did not build")
+    if objects is None:
+        raise RuntimeError(
+            "object extension (csrc/shortseq_native.cpp) did not build")
     _build.cuda_lib()
-    return (f"kernels {t1 - t0:.3f} s ({cuda.name}), "
-            f"host {t2 - t1:.3f} s ({host.name})")
+    if shortseq_torch.BACKEND != "native":
+        raise RuntimeError(f"object backend is {shortseq_torch.BACKEND}")
+    return (f"kernels {t_cuda:.3f} s ({cuda.name}), host {t_host:.3f} s "
+            f"({host.name}), objects {t_obj:.3f} s ({objects.name}); "
+            f"BACKEND {shortseq_torch.BACKEND}")
 
 
 def phase_kernels(torch, results):
@@ -265,30 +333,87 @@ def phase_kernels(torch, results):
     results["neighbor_extract"] = dict(
         replaces="shortseq_tpu/umi/dedup.py:180",
         max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1])
+
+    # D: the group count after unique_count's sort.  Random 32-nt-class
+    # rows (nearly all unique), 150-nt rows drawn Zipf(1.2) from 200,000
+    # keys (one group of ~390,000 rows), and 96-nt-class rows from a pool.
+    from shortseq_torch.count import device as cdev
+
+    errs, d_main = [], None
+    for n, w, keys, zipf, lens in (
+            (10_000_000, 2, None, False, (15, 32)),
+            (2_000_000, 64, 200_000, True, (150, 150)),
+            (1_000_000, 6, 300_000, False, (33, 96))):
+        m = keys or n
+        pool = torch.from_numpy(rng.integers(-2**31, 2**31, size=(m, w),
+                                             dtype=np.int64)
+                                .astype(np.int32)).cuda()
+        pool_len = torch.from_numpy(rng.integers(
+            lens[0], lens[1] + 1, size=m).astype(np.int32)).cuda()
+        if keys is None:
+            words, lengths = pool, pool_len
+        else:
+            pick = zipf_pick(rng, keys, n) if zipf else \
+                rng.integers(0, keys, size=n)
+            pick = torch.from_numpy(pick).cuda()
+            words, lengths = pool[pick].contiguous(), pool_len[pick]
+            del pool, pool_len
+        weights = torch.ones(n, dtype=torch.int32, device="cuda")
+        perm = cdev.sort_rows(words, lengths)
+        want = cdev.group_count_plain(words, lengths, weights, perm, n)
+        errs.append(exact(
+            f"D [{n},{w}]",
+            cdev.group_count(words, lengths, weights, perm, n), want))
+        biggest = int(want[2].max())
+        del want
+        ms, plain_ms, sort_ms, total_ms = timer([
+            lambda: cdev.group_count(words, lengths, weights, perm, n),
+            lambda: cdev.group_count_plain(words, lengths, weights, perm, n),
+            lambda: cdev.sort_rows(words, lengths),
+            lambda: cdev.unique_count(words, lengths, weights)])
+        lines.append(f"D [{n},{w}] (largest group {biggest}): {ms:.4f} ms, "
+                     f"plain {plain_ms:.4f} ms; sort {sort_ms:.4f} ms; "
+                     f"unique_count {total_ms:.4f} ms")
+        if d_main is None:
+            d_main = (ms, plain_ms)
+        del words, lengths, weights, perm
+    results["unique_count"] = dict(
+        source=SOURCE_D, replaces="shortseq_tpu/count/device.py:156",
+        max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1])
     for line in lines:
         print("  " + line, flush=True)
     return "all kernels equal their plain versions"
 
 
 class MainPath:
-    """Launch counts of kernels A, B and C over the main path's runs
-    only: each run starts every count at 0 and adds what it launched."""
+    """Launch counts of kernels A, B, C and D over the main path's runs
+    only: each run starts every count at 0 and adds what it launched, in
+    all (`launches`), per phase (`by_phase`) and for the last run
+    (`last`)."""
 
     def __init__(self):
+        from shortseq_torch.count import device as cdev
         from shortseq_torch.ops import bitpack, pairwise
         from shortseq_torch.umi import dedup
 
         self.wrappers = {"pack_validate": bitpack.pack_and_validate_u32,
                          "pairwise_hamming": pairwise.hamming_pairwise_tiled,
-                         "neighbor_extract": dedup.neighbor_extract}
+                         "neighbor_extract": dedup.neighbor_extract,
+                         "unique_count": cdev.group_count}
         self.launches = dict.fromkeys(self.wrappers, 0)
+        self.by_phase = {}
+        self.last = {}
 
-    def run(self, fn, *args, **kwargs):
+    def run(self, phase_name, fn, *args, **kwargs):
         for w in self.wrappers.values():
             w.launches = 0
         out = fn(*args, **kwargs)
-        for name, w in self.wrappers.items():
-            self.launches[name] += w.launches
+        self.last = {name: w.launches for name, w in self.wrappers.items()}
+        per = self.by_phase.setdefault(phase_name,
+                                       dict.fromkeys(self.wrappers, 0))
+        for name, n in self.last.items():
+            self.launches[name] += n
+            per[name] += n
         return out
 
 
@@ -302,8 +427,9 @@ def phase_umi_scale(torch, main_path):
     umis = uniq * 3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    labels, reps = main_path.run(dedup.dedup_umis, umis, threshold=1,
-                                 method="directional", device="cuda")
+    labels, reps = main_path.run("umi_scale", dedup.dedup_umis, umis,
+                                 threshold=1, method="directional",
+                                 device="cuda")
     wall = time.perf_counter() - t0
 
     # A valid partition: every UMI labelled, every cluster used, and each
@@ -376,8 +502,8 @@ def phase_umi_cli(torch, main_path, workdir):
     reads = np.ascontiguousarray(reads_mat[:, :lengths[0]])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    labels, molecules = main_path.run(dedup.dedup_reads, reads, len_5p=8,
-                                      device="cuda")
+    labels, molecules = main_path.run("umi_cli", dedup.dedup_reads, reads,
+                                      len_5p=8, device="cuda")
     api_wall = time.perf_counter() - t0
     per_mol = np.bincount(labels, minlength=len(molecules))
     items = sorted(zip(molecules, per_mol), key=lambda kv: -kv[1])
@@ -395,6 +521,182 @@ def phase_umi_cli(torch, main_path, workdir):
             f"{split}/{len(mols)} sampled molecules split")
 
 
+def live_rows(table):
+    """A CountTable's live rows per bucket width: {W: (words uint32,
+    lengths int32, counts int64)}."""
+    import numpy as np
+
+    from shortseq_torch.count.device import fetch_table
+
+    out = {}
+    for b in table._buckets:
+        if b.device:
+            w, lens, cnts, _ = fetch_table(b.words, b.lengths, b.counts,
+                                           b._n)
+        else:
+            n = b.n_unique
+            w, lens, cnts = b.words[:n], b.lengths[:n], b.counts[:n]
+        out[b.width] = (np.asarray(w, np.uint32), np.asarray(lens, np.int32),
+                        np.asarray(cnts, np.int64))
+    return out
+
+
+def assert_same_rows(got, want, what):
+    """Equal live tables, bucket by bucket, as row-sorted arrays (rows
+    ordered by length, then the lanes as unsigned)."""
+    import numpy as np
+
+    def ordered(w, lens, cnts):
+        order = np.lexsort([w[:, j] for j in range(w.shape[1] - 1, -1, -1)]
+                           + [lens])
+        return w[order], lens[order], cnts[order]
+
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: buckets {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for width in got:
+        a, b = ordered(*got[width]), ordered(*want[width])
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what}: {width}-lane tables differ")
+
+
+def count_files(workdir):
+    """The count phase's three FASTQ files, from fixed seeds."""
+    import numpy as np
+
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    files = {}
+    # 1: 10M uniform reads of 15-32 nt (benchmarks/profile_10m.py's shape).
+    rng = np.random.default_rng(0)
+    lens = rng.integers(15, 33, size=10_000_000)
+    files["10m_15-32nt"] = (Path(workdir) / "reads_10m.fastq", len(lens))
+    write_fastq_ragged(files["10m_15-32nt"][0],
+                       alpha[rng.integers(0, 4, size=int(lens.sum()))], lens)
+    # 2: 2M reads of 150 nt, PCR duplicates drawn Zipf(1.2) from 200k.
+    rng = np.random.default_rng(1)
+    mols = alpha[rng.integers(0, 4, size=(200_000, 150))]
+    files["2m_150nt_zipf"] = (Path(workdir) / "reads_150nt.fastq", 2_000_000)
+    write_fastq(files["2m_150nt_zipf"][0],
+                mols[zipf_pick(rng, 200_000, 2_000_000)])
+    del mols
+    # 3: 1M reads of 0-300 nt (all three buckets, empty reads) drawn from
+    # a pool of 300k reads.
+    rng = np.random.default_rng(2)
+    pool_len = rng.integers(0, 301, size=300_000)
+    pool = alpha[rng.integers(0, 4, size=int(pool_len.sum()))]
+    pick = rng.integers(0, 300_000, size=1_000_000)
+    lens = pool_len[pick]
+    col = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
+    seqs = pool[np.repeat((np.cumsum(pool_len) - pool_len)[pick], lens) + col]
+    files["1m_0-300nt"] = (Path(workdir) / "reads_mixed.fastq", len(lens))
+    write_fastq_ragged(files["1m_0-300nt"][0], seqs, lens)
+    return files
+
+
+def phase_count(torch, main_path, workdir, found):
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    import shortseq_torch as st
+    from shortseq_torch.api.counter import count_matrix_device
+    from shortseq_torch.io.fastq import read_fastq_matrix
+
+    t0 = time.perf_counter()
+    files = count_files(workdir)
+    gen_s = time.perf_counter() - t0
+    lines = []
+
+    def count(path, engine):
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            if engine == "device":
+                table = main_path.run("count", st.read_and_count_fastq_table,
+                                      path, engine="device", device="cuda")
+            else:
+                table = st.read_and_count_fastq_table(path, engine="host")
+        wall = time.perf_counter() - t0
+        return table, (f"{engine} {wall:.3f} s (read "
+                       f"{table._read_seconds:.3f} s, count "
+                       f"{wall - table._read_seconds:.3f} s)")
+
+    tables = {}
+    for name, (path, n_reads) in files.items():
+        dev, dev_wall = count(path, "device")
+        host, host_wall = count(path, "host")
+        dev_rows = live_rows(dev)
+        assert_same_rows(dev_rows, live_rows(host), f"{name} device vs host")
+        if not dev.total() == host.total() == n_reads:
+            raise AssertionError(f"{name}: totals {dev.total()}, "
+                                 f"{host.total()}, reads {n_reads}")
+        top_d = [(str(k), c) for k, c in dev.most_common(20)]
+        top_h = [(str(k), c) for k, c in host.most_common(20)]
+        edge = top_h[-1][1]
+        if [c for _, c in top_d] != [c for _, c in top_h] or \
+                [kv for kv in top_d if kv[1] > edge] != \
+                [kv for kv in top_h if kv[1] > edge]:
+            raise AssertionError(f"{name}: most_common(20) differs")
+        lines.append(f"{name}: {n_reads} reads -> {len(dev)} unique, top "
+                     f"count {top_d[0][1]}; {dev_wall}; {host_wall}")
+        tables[name] = (dev, host, dev_rows)
+
+    # File 3: the materialized dicts, and the ASCII-matrix path (kernel A).
+    dev, host, _ = tables["1m_0-300nt"]
+    want = {str(k): v for k, v in host.to_counter().items()}
+    if {str(k): v for k, v in dev.to_counter().items()} != want:
+        raise AssertionError("1m_0-300nt: to_counter() differs from host")
+    mat, lengths = read_fastq_matrix(files["1m_0-300nt"][0])
+    t0 = time.perf_counter()
+    got = main_path.run("count", count_matrix_device, mat, lengths,
+                        device="cuda")
+    matrix_wall = time.perf_counter() - t0
+    found["matrix_pack_validate"] = main_path.last["pack_validate"]
+    if {str(k): v for k, v in got.items()} != want:
+        raise AssertionError("count_matrix_device differs from host")
+    lines.append(f"1m_0-300nt count_matrix_device: {matrix_wall:.3f} s, "
+                 f"{len(got)} keys equal to host")
+    del mat, got, want
+
+    # File 1 in 256 MiB byte-range slices: the streamed path.
+    path, _ = files["10m_15-32nt"]
+    os.environ["SHORTSEQ_TORCH_STREAM_BYTES"] = str(256 << 20)
+    try:
+        streamed, s_wall = count(path, "device")
+    finally:
+        del os.environ["SHORTSEQ_TORCH_STREAM_BYTES"]
+    whole = tables["10m_15-32nt"][2]
+    for width, rows in live_rows(streamed).items():
+        if not all(np.array_equal(x, y) for x, y in zip(rows, whole[width])):
+            raise AssertionError("streamed table differs from whole-file")
+    lines.append(f"10m_15-32nt streamed in "
+                 f"{-(-os.path.getsize(path) // (256 << 20))} slices: "
+                 f"{s_wall}, equal to the whole-file table")
+
+    # The CLI on file 2, against the in-process table's top 20.
+    path, _ = files["2m_150nt_zipf"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "shortseq_torch", "count", str(path),
+         "--engine", "device", "--top", "20"], cwd=ROOT, capture_output=True,
+        timeout=900)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"count CLI exit {proc.returncode}: "
+                           f"{proc.stderr.decode(errors='replace')}")
+    want = "".join(f"{k}\t{v}\n"
+                   for k, v in tables["2m_150nt_zipf"][0].most_common(20))
+    if proc.stdout.decode() != want:
+        raise AssertionError("count CLI top 20 differs from the API's")
+    lines.append(f"2m_150nt_zipf CLI --top 20: {cli_wall:.3f} s, equal to "
+                 "the API's")
+    for line in lines:
+        print("  " + line, flush=True)
+    return f"files written in {gen_s:.3f} s; all checks passed"
+
+
 # --- main -------------------------------------------------------------------
 
 
@@ -409,6 +711,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from shortseq_torch.api import counter
     from shortseq_torch.io import native
     from shortseq_torch.umi import dedup
 
@@ -417,34 +720,52 @@ def main() -> int:
     phase("build", phase_build)
     phase("kernels", phase_kernels, torch, results)
 
-    # The main path: kernel launches and grouping paths counted.
+    # The main path: kernel launches and the paths taken, counted.
     main_path = MainPath()
-    paths = {}
-    for name in ("_dedup_umi_matrix", "_dedup_reads_matrix"):
-        real = getattr(dedup, name)
+    paths, found = {}, {}
+    for module, name in ((dedup, "_dedup_umi_matrix"),
+                         (dedup, "_dedup_reads_matrix"),
+                         (counter, "count_indexed_device_table"),
+                         (counter, "_read_and_count_table_streamed"),
+                         (counter, "_h2d_chunks")):
+        real = getattr(module, name)
 
         def counted(*a, _real=real, _name=name, **k):
-            paths[_name] = paths.get(_name, 0) + 1
-            return _real(*a, **k)
+            out = _real(*a, **k)
+            if _name != "_h2d_chunks" or out == 4:
+                paths[_name] = paths.get(_name, 0) + 1
+            return out
 
-        setattr(dedup, name, counted)
+        setattr(module, name, counted)
     with tempfile.TemporaryDirectory() as workdir:
         phase("umi_scale", phase_umi_scale, torch, main_path)
         phase("umi_cli", phase_umi_cli, torch, main_path, workdir)
+        phase("count", phase_count, torch, main_path, workdir, found)
     launches = main_path.launches
 
     def counters():
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
+        if main_path.by_phase["count"]["unique_count"] == 0:
+            raise AssertionError("kernel D never launched in phase count")
+        if found["matrix_pack_validate"] == 0:
+            raise AssertionError("kernel A never launched in "
+                                 "count_matrix_device")
         if native.get_lib() is None:
             raise AssertionError("native host library not loaded")
-        if set(paths) != {"_dedup_umi_matrix", "_dedup_reads_matrix"}:
-            raise AssertionError(f"matrix paths not all taken: {paths}")
-        return f"launches {launches}, matrix paths {paths}"
+        want = {"_dedup_umi_matrix", "_dedup_reads_matrix",
+                "count_indexed_device_table",
+                "_read_and_count_table_streamed", "_h2d_chunks"}
+        if set(paths) != want:
+            raise AssertionError(f"paths not all taken: {paths}")
+        return (f"launches {launches}, in phase count "
+                f"{main_path.by_phase['count']}, A in count_matrix_device "
+                f"{found['matrix_pack_validate']}; paths {paths} "
+                "(_h2d_chunks: buckets sent in 4 chunks)")
 
     phase("counters", counters)
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    kernels = [dict(name=name, route="cuda", source=r.get("source", SOURCE),
                     replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"]) for name, r in results.items()]

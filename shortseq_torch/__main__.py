@@ -1,10 +1,15 @@
 """Command-line entry point: `python -m shortseq_torch <command>`.
 
 Commands:
+  count FILE   exact-dedup a FASTQ (plain, gzip or BGZF), print a TSV count
+               table
+  pack SEQ...  pack sequences and show their width class, hex words, hash
   umi FILE     UMI-deduplicate FASTQ reads (molecule table to stdout)
 
 The same arguments and the same TSV / JSON output as
-`python -m shortseq_tpu umi`, plus `--device` (default cuda).
+`python -m shortseq_tpu count|pack|umi`, plus `--device` (default cuda)
+for count and umi.  count's --shards and --checkpoint (the resumable
+sharded pipeline) are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +17,37 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _cmd_count(args) -> int:
+    import contextlib
+
+    from .api.counter import read_and_count_fastq, read_and_count_fastq_table
+
+    try:
+        # The reference phase-timing print goes to stderr so stdout stays
+        # a clean table.
+        with contextlib.redirect_stdout(sys.stderr):
+            if args.top:
+                # Lazy path: only the top N rows are fetched and
+                # materialized (count/table.py), never the full dict.
+                table = read_and_count_fastq_table(
+                    args.file, engine=args.engine, device=args.device)
+                items = table.most_common(args.top)
+            else:
+                counts = read_and_count_fastq(args.file, engine=args.engine,
+                                              device=args.device)
+                items = sorted(counts.items(), key=lambda kv: -kv[1])
+    except Exception as e:
+        # Invalid bases raise the reference's bare Exception, bad paths
+        # OSError, a missing card RuntimeError: all print cleanly.
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    _write_table(args, items,
+                 to_json=lambda items: {str(k): v for k, v in items},
+                 to_row=lambda k, v: f"{k}\t{v}\n")
+    return 0
 
 
 def _write_table(args, items, to_json, to_row):
@@ -69,10 +105,37 @@ def _cmd_umi(args) -> int:
     return 0
 
 
+def _cmd_pack(args) -> int:
+    from . import pack
+    from .oracle import encode_bytes
+
+    for s in args.seq:
+        obj = pack(s)
+        blocks = encode_bytes(s.encode())  # reference uint64 block layout
+        words = " ".join(f"{b:016x}" for b in blocks)
+        print(f"{s}\t{type(obj).__name__}\tlen={len(obj)}\t"
+              f"hash={hash(obj)}\tblocks={words or '-'}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m shortseq_torch",
                                  description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="command", required=True)
+
+    c = sub.add_parser("count", help="exact-dedup a FASTQ file")
+    c.add_argument("file")
+    c.add_argument("--engine", default="auto",
+                   choices=("auto", "host", "device"))
+    c.add_argument("--top", type=int, default=0,
+                   help="only the N most frequent sequences")
+    c.add_argument("--json", action="store_true",
+                   help="JSON object instead of TSV")
+    c.add_argument("--output", "-o", default=None,
+                   help="write the table here instead of stdout")
+    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where the device engine counts")
+    c.set_defaults(fn=_cmd_count)
 
     u = sub.add_parser("umi", help="UMI-deduplicate FASTQ reads")
     u.add_argument("file")
@@ -93,6 +156,10 @@ def main(argv=None) -> int:
     u.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the pack and adjacency stages run")
     u.set_defaults(fn=_cmd_umi)
+
+    p = sub.add_parser("pack", help="pack sequences, show their encoding")
+    p.add_argument("seq", nargs="+")
+    p.set_defaults(fn=_cmd_pack)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,15 +1,20 @@
-"""Build and load, at first use, the two native libraries of the port.
+"""Build and load, at first use, the three native libraries of the port.
 
 * CUDA: every `shortseq_torch/csrc/*.cu` compiled by nvcc for sm_90a into
   one shared library with a plain C interface, bound with ctypes.  A
   failed build raises with nvcc's own message: the device path never
   gives way to the plain PyTorch versions.
-* Host: the unchanged `csrc/fastq_index.cpp` (FASTQ indexer, hash
-  counter, greedy UMI collapse) compiled by g++ exactly as the JAX
-  package builds it.  Host code keeps that package's behaviour when no
-  compiler is present: callers take their pure-Python paths.
+* Host: the unchanged `csrc/fastq_index.cpp` (FASTQ indexer, gather +
+  pack, hash counter, greedy UMI collapse) compiled by g++ exactly as the
+  JAX package builds it.  Host code keeps that package's behaviour when
+  no compiler is present: callers take their pure-Python paths.
+* Objects: the unchanged `csrc/shortseq_native.cpp` (the C ShortSeq
+  types) compiled by g++ against the interpreter's headers and loaded as
+  the extension module `shortseq_torch._native`.  When it cannot be
+  built, or SHORTSEQ_TORCH_FORCE_PYTHON=1, the pure-Python object layer
+  (api/seq.py) serves with identical semantics.
 
-Both land under `build/shortseq_torch/` at the repository root, named by a
+All land under `build/shortseq_torch/` at the repository root, named by a
 hash of their sources and flags, and are published by an atomic rename so
 a concurrent process never loads a half-written library.
 """
@@ -21,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 
@@ -29,14 +35,23 @@ import torch
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "shortseq_torch"
 _HOST_SRC = _PKG.parent / "csrc" / "fastq_index.cpp"
+_OBJECTS_SRC = _PKG.parent / "csrc" / "shortseq_native.cpp"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*NVCC_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-pthread"]
 
 _lock = threading.Lock()
 _cuda = None
+_objects = None
+_objects_tried = False
+
+
+def force_python() -> bool:
+    """SHORTSEQ_TORCH_FORCE_PYTHON=1: use neither g++ library (the host
+    code's pure-Python paths and object layer serve instead)."""
+    return os.environ.get("SHORTSEQ_TORCH_FORCE_PYTHON", "") == "1"
 
 
 def isa_token() -> str:
@@ -93,17 +108,44 @@ def _nvcc() -> str:
 
 
 def build_cuda() -> Path:
-    """Path of the kernels' shared library, compiling it if needed.
-    Raises RuntimeError with nvcc's stderr when the build fails."""
+    """Path of the kernels' shared library, compiling it if needed: one
+    nvcc per source, all started together, then one link.  Raises
+    RuntimeError with nvcc's stderr when the build fails."""
     sources = sorted((_PKG / "csrc").glob("*.cu"))
-    out = BUILD_DIR / f"libssq_kernels_{_digest(sources, NVCC_FLAGS)}.so"
+    digest = _digest(sources, NVCC_FLAGS)
+    out = BUILD_DIR / f"libssq_kernels_{digest}.so"
     if out.exists():
         return out
-    proc = _compile([_nvcc(), *NVCC_FLAGS, *map(str, sources)], out, 600)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}) building "
-            f"{', '.join(s.name for s in sources)}:\n{proc.stderr}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{s.stem}_{digest}.tmp{os.getpid()}.o"
+            for s in sources]
+    procs = []
+    try:
+        for src, obj in zip(sources, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        errors = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                errors.append(f"{src.name} (exit {proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed building " + "\n".join(errors))
+        proc = _compile([nvcc, *NVCC_ARCH, "-shared", *map(str, objs)], out,
+                        600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}) linking "
+                f"{', '.join(s.name for s in sources)}:\n{proc.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -122,6 +164,57 @@ def build_host() -> Path | None:
     return out if proc.returncode == 0 else None
 
 
+def build_objects() -> Path | None:
+    """Path of the object extension, or None when it cannot be built here
+    (no g++ or no Python headers)."""
+    if not _OBJECTS_SRC.exists():
+        return None
+    include = sysconfig.get_paths()["include"]
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    flags = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             f"-I{include}"]
+    out = BUILD_DIR / (f"_native_{_digest([_OBJECTS_SRC], flags)}_"
+                       f"{isa_token()}{suffix}")
+    if out.exists():
+        return out
+    try:
+        proc = _compile(["g++", *flags, str(_OBJECTS_SRC)], out, 180)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out if proc.returncode == 0 else None
+
+
+def load_objects():
+    """The `shortseq_torch._native` module, built on first call, or None
+    when it cannot be built or loaded (or SHORTSEQ_TORCH_FORCE_PYTHON=1)."""
+    global _objects, _objects_tried
+    with _lock:
+        if _objects_tried:
+            return _objects
+        _objects_tried = True
+        if force_python():
+            return None
+        path = build_objects()
+        if path is None:
+            return None
+        import importlib.machinery
+        import importlib.util
+
+        name = "shortseq_torch._native"
+        try:
+            loader = importlib.machinery.ExtensionFileLoader(name, str(path))
+            spec = importlib.util.spec_from_loader(name, loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+        except (ImportError, OSError):
+            # A corrupt build must degrade to the pure-Python layer, and
+            # dropping it lets the next run rebuild cleanly.
+            path.unlink(missing_ok=True)
+            return None
+        _objects = mod
+        return _objects
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
@@ -134,6 +227,12 @@ _CUDA_SIGNATURES = {
     # threshold, k, stream
     "ssq_neighbor_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                              _I32, _I32, _P],
+    # words, lengths, weights, perm, flags, poison, n, w, stream
+    "ssq_group_flags": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P],
+    # words, lengths, weights, perm, flags, ends, poison, u_words,
+    # u_lengths, counts, n_unique, n, w, n_out, stream
+    "ssq_group_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                         _I32, _I64, _P],
 }
 
 
@@ -163,6 +262,17 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.ssq_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device(device), raising when it names CUDA and there is no
+    card: a device path never carries on on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' needs a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return device
 
 
 def check_operand(t, name: str, dtype, ndim: int, device) -> None:

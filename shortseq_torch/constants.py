@@ -1,13 +1,31 @@
-"""Domain constants of the UMI slice, copied from shortseq_tpu/constants.py
+"""Domain constants of the port, copied from shortseq_tpu/constants.py
 (pure Python, so the port carries its own copy rather than importing the
-JAX package).  See that file for the full reasoning behind each value."""
+JAX package): the ones the port uses.  See that file for the full
+reasoning behind each value.
 
-# Longest sequence of the 2-lane (one 64-bit block) width class.
+One reference 64-bit block is a little-endian pair of 32-bit lanes:
+nucleotide i of a read lives in lane i // 16 at bits 2 * (i % 16), so
+reference block b is lanes[2b] | lanes[2b + 1] << 32.
+"""
+
+# Width-class domains (reference short_seq_64.pyx:27-28 and friends).
+MIN_64_NT = 0
 MAX_64_NT = 32
+MIN_192_NT = 33
+MAX_192_NT = 96
+MIN_VAR_NT = 97
+MAX_VAR_NT = 1024
+MAX_REPR_LEN = 75
+
+NT_PER_BLOCK = 32          # nts per reference uint64 block
+
+# code = (ascii >> 1) & 3: A=00, C=01, T=10, G=11; code -> char.
+CHARMAP = ("A", "C", "T", "G")
 
 # 64-bit bloom filter; bit (char & 63) SET means the char is rejected.
 # A byte passes iff (c & 63) is one of {1, 3, 7, 20}: uppercase A/C/G/T
-# among printable ASCII, plus the reference's false-pass aliases.
+# among printable ASCII, plus the reference's false-pass aliases, which
+# every path here accepts on purpose (byte-for-byte reference parity).
 BLOOM = 0xFFFFFFFFFFEFFF75
 
 # Padding byte of in-repo ASCII matrices: passes the bloom and encodes to
@@ -15,3 +33,10 @@ BLOOM = 0xFFFFFFFFFFEFFF75
 PAD_BYTE = 0x01
 
 UNSUPPORTED_BASE_MSG = "Unsupported base character"
+TOO_LONG_MSG = f"Sequences longer than {MAX_VAR_NT} bases are not supported."
+LENGTH_MISMATCH_MSG = "Hamming distance requires sequences of equal length"
+
+
+def blocks_for_length(length: int) -> int:
+    """Number of reference 64-bit blocks for `length` nucleotides."""
+    return -(-length // NT_PER_BLOCK)

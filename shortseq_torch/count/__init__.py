@@ -1,0 +1,11 @@
+"""Exact deduplication on the device: sort-unique-count (torch.sort +
+kernel D) over packed lane rows, and the lazy CountTable over its results.
+
+The operation is associative: merging count tables is concatenation + one
+more unique_count with the counts as weights (count/checkpoint.py).
+"""
+
+from .device import count_batch, counts_to_host, unique_count
+from .table import CountTable
+
+__all__ = ["unique_count", "count_batch", "counts_to_host", "CountTable"]

@@ -1,0 +1,268 @@
+"""Sort-unique-count over packed lane batches, from
+shortseq_tpu/count/device.py.
+
+Counting is sort-based grouping:
+
+  1. sort_rows: a stable LSD sort of the rows by (length, lane_0, ...,
+     lane_{W-1}), lanes compared as unsigned, PAD rows last - one
+     torch.sort (CUB radix on the card) per pair of 32-bit key columns,
+     least significant pair first, permuting by gathering the index.
+  2. group_count (kernel D, shortseq_torch/csrc/count.cu): boundary
+     flags, exact int64 group sums, one key row per group, n_unique over
+     the live prefix, pad normalization and the poison, all read through
+     the sort's permutation.  group_count_plain is its plain PyTorch
+     version.
+
+The JAX package sorted rows of up to 6 lanes with one multi-operand
+lax.sort and wider rows by a seeded 64-bit hash with a retry loop and an
+exhaustion poison (count/device.py:40-152): both existed for the TPU
+compiler's limits.  The radix sort here is exact at every width, so the
+port has no hash path, no retry loop and no exhaustion poison.  Groups
+come out in ascending key order at every width; for W <= 6 the tables
+equal the JAX package's array for array, for W > 6 the JAX tables are in
+hash order and hold the same rows.
+
+Weights make the op associative - merging count tables is concatenation
++ another unique_count.  Sums are exact in int64; a group whose sum
+leaves the int32 range, or every live group when any live input weight is
+negative (a poisoned upstream count), reads -1, and every materialization
+path raises on it.
+
+Padding convention: callers mark dead rows with length PAD_LENGTH.  Dead
+rows sort to the end, may split into several trailing pad groups (stale
+words), and are excluded from `n_unique`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+
+# Sorts after every real length (0..1024).  int32 max keeps it impossible.
+PAD_LENGTH = 2**31 - 1
+
+_INT32_MIN = -2**31
+_INT32_MAX = 2**31 - 1
+
+
+def empty_table(width: int = 1, device="cpu", rows: int = 1):
+    """Canonical empty count table: all-pad rows that carry the
+    PAD_LENGTH sentinel (length 0 is a live value - an empty read - and
+    sentinel-filtering consumers would emit it as a phantom key)."""
+    return (torch.zeros((rows, width), dtype=torch.int32, device=device),
+            torch.full((rows,), PAD_LENGTH, dtype=torch.int32, device=device),
+            torch.zeros(rows, dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.int32, device=device))
+
+
+def sort_rows(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Permutation (int64 [N]) that sorts rows by (length, lane_0, ...,
+    lane_{W-1}) with lanes compared as unsigned and ties in input order.
+
+    The key digits are 32-bit: the length, then each lane.  Two digits
+    fuse into one int64 key, hi * 2^32 + lo, with hi biased by x ^ -2^31
+    (so its signed order is the unsigned order) and lo zero-extended; each
+    key is one stable torch.sort, least significant pair first, applied to
+    the permutation so far.  Lengths are non-negative (or PAD_LENGTH), so
+    their unsigned order is their signed order."""
+    n, w = words.shape
+    digits = [lengths] + [words[:, j] for j in range(w)]
+    perm = None
+    end = len(digits)
+    while end > 0:
+        lo = digits[end - 1]
+        if end >= 2:
+            hi = digits[end - 2].to(torch.int32) ^ _INT32_MIN
+            key = hi.long() * (1 << 32) + (lo.long() & 0xFFFFFFFF)
+            end -= 2
+        else:
+            key = lo.to(torch.int32) ^ _INT32_MIN
+            end -= 1
+        if perm is not None:
+            key = key[perm]
+        order = torch.sort(key, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def group_count_plain(words, lengths, weights, perm, n_out: int):
+    """Plain PyTorch version of kernel D: the group count of the rows in
+    `perm` order.  Returns (u_words [n_out, W], u_lengths [n_out],
+    counts [n_out], n_unique 0-d), all int32."""
+    n, w = words.shape
+    dev = words.device
+    s_words, s_len, s_wt = words[perm], lengths[perm], weights[perm]
+    is_new = torch.ones(n, dtype=torch.bool, device=dev)
+    is_new[1:] = (s_len[1:] != s_len[:-1]) \
+        | (s_words[1:] != s_words[:-1]).any(dim=1)
+    seg = torch.cumsum(is_new, 0) - 1
+    starts = is_new.nonzero().flatten()
+    live = s_len != PAD_LENGTH
+    live_wt = torch.where(live, s_wt, 0).long()
+    sums = torch.zeros(len(starts), dtype=torch.int64, device=dev)
+    sums.index_add_(0, seg, live_wt)
+    wrapped = (sums > _INT32_MAX) | (sums < _INT32_MIN)
+    poison = (live_wt < 0).any()
+    g_len = s_len[starts]
+    g_live = g_len != PAD_LENGTH
+    counts = torch.where(g_live & (wrapped | poison), -1, sums)
+    counts = torch.where(g_live, counts, 0).to(torch.int32)
+    k = min(len(starts), n_out)
+    u_words = torch.zeros((n_out, w), dtype=torch.int32, device=dev)
+    u_lengths = torch.full((n_out,), PAD_LENGTH, dtype=torch.int32,
+                           device=dev)
+    u_counts = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    u_words[:k] = s_words[starts[:k]]
+    u_lengths[:k] = g_len[:k]
+    u_counts[:k] = counts[:k]
+    return u_words, u_lengths, u_counts, g_live.sum().to(torch.int32)
+
+
+def group_count(words, lengths, weights, perm, n_out: int):
+    """Kernel D: the group count of the rows in `perm` order (two launches
+    with a cumsum between them, counted as one launch of D).  A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version."""
+    if words.device.type == "cpu":
+        return group_count_plain(words, lengths, weights, perm, n_out)
+    dev = words.device
+    _build.check_operand(words, "words", torch.int32, 2, dev)
+    n, w = words.shape
+    for name, t, dtype in (("lengths", lengths, torch.int32),
+                           ("weights", weights, torch.int32),
+                           ("perm", perm, torch.int64)):
+        _build.check_operand(t, name, dtype, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} rows, words has {n}")
+    flags = torch.empty(n, dtype=torch.int32, device=dev)
+    poison = torch.zeros(1, dtype=torch.int32, device=dev)
+    _build.launch("ssq_group_flags", words.data_ptr(), lengths.data_ptr(),
+                  weights.data_ptr(), perm.data_ptr(), flags.data_ptr(),
+                  poison.data_ptr(), n, w)
+    ends = torch.cumsum(flags, 0, dtype=torch.int32)
+    u_words = torch.zeros((n_out, w), dtype=torch.int32, device=dev)
+    u_lengths = torch.full((n_out,), PAD_LENGTH, dtype=torch.int32,
+                           device=dev)
+    counts = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    n_unique = torch.zeros((), dtype=torch.int32, device=dev)
+    _build.launch("ssq_group_reduce", words.data_ptr(), lengths.data_ptr(),
+                  weights.data_ptr(), perm.data_ptr(), flags.data_ptr(),
+                  ends.data_ptr(), poison.data_ptr(), u_words.data_ptr(),
+                  u_lengths.data_ptr(), counts.data_ptr(),
+                  n_unique.data_ptr(), n, w, n_out)
+    group_count.launches += 1
+    return u_words, u_lengths, counts, n_unique
+
+
+group_count.launches = 0
+
+
+def unique_count(words: torch.Tensor, lengths: torch.Tensor,
+                 weights: torch.Tensor, n_out: int | None = None):
+    """Group identical (length, words-row) keys and sum their weights.
+
+    Args:
+      words:   `[N, W]` int32 packed lanes (uint32 bits, zero-padded past
+               each length).
+      lengths: `[N]` int32; PAD_LENGTH marks dead rows (weight ignored).
+      weights: `[N]` int32 per-row counts (1 for raw reads; table counts
+               when merging).
+    Returns:
+      (u_words `[M, W]`, u_lengths `[M]`, u_counts `[M]`, n_unique 0-d),
+      all int32 on the inputs' device, with M = n_out or N; groups in
+      ascending key order; rows at and past n_unique are padding (length
+      PAD_LENGTH, count 0).  An n_out below the unique count keeps the
+      first n_out groups and fetch_table raises on the table.
+    """
+    if words.dim() != 2:
+        raise ValueError(f"words must be [N, W], got {tuple(words.shape)}")
+    n, w = words.shape
+    if lengths.shape != (n,) or weights.shape != (n,):
+        raise ValueError(
+            f"lengths {tuple(lengths.shape)} and weights "
+            f"{tuple(weights.shape)} must both be [{n}]")
+    if n_out is None:
+        n_out = n
+    if n == 0:
+        # An empty batch (e.g. an empty file) keeps every shape rule: a
+        # table of max(n_out, 1) pad rows.
+        return empty_table(w, words.device, max(n_out, 1))
+    perm = sort_rows(words, lengths)
+    return group_count(words, lengths, weights, perm, n_out)
+
+
+def count_batch(words: torch.Tensor, lengths: torch.Tensor):
+    """Count a raw read batch: every row weight 1."""
+    return unique_count(words, lengths,
+                        torch.ones(words.shape[0], dtype=torch.int32,
+                                   device=words.device))
+
+
+def fetch_table(u_words, u_lengths, u_counts, n_unique):
+    """Fetch only the live prefix of a count table to host.
+
+    Returns host numpy arrays (words [n, W] uint32, lengths [n] int32,
+    counts [n] int32, n).  A table with fewer rows than n_unique (n_out
+    too small) raises instead of dropping keys."""
+    n = int(n_unique)
+    total = u_words.shape[0]
+    if n > total:
+        raise ValueError(
+            f"count table overflow: {n} unique keys but only {total} "
+            f"output rows (n_out too small)")
+    return (u_words[:n].cpu().numpy().view(np.uint32),
+            u_lengths[:n].cpu().numpy(), u_counts[:n].cpu().numpy(), n)
+
+
+def table_to_host(table):
+    """A (words, lengths, counts, n_unique) count table -> compact host
+    (words, lengths, counts), raising on n_out overflow and on poisoned
+    (count < 0) entries: a poisoned count re-merged with more weight
+    could land positive and pass every later check."""
+    w, lens, cnts, _ = fetch_table(*table)
+    if len(cnts) and int(cnts.min()) < 0:
+        raise OverflowError(
+            "count table entry exceeded int32; merge in smaller pieces")
+    return w, lens, cnts
+
+
+def counts_to_host_scattered(u_words, u_lengths, u_counts):
+    """Like counts_to_host for tables whose live rows are NOT contiguous:
+    filters by the PAD_LENGTH sentinel instead of slicing a prefix."""
+    lens = u_lengths.cpu().numpy()
+    live = np.flatnonzero(lens != PAD_LENGTH)
+    return _rows_to_table(u_words.cpu().numpy().view(np.uint32)[live],
+                          lens[live], u_counts.cpu().numpy()[live])
+
+
+def counts_to_host(u_words, u_lengths, u_counts, n_unique):
+    """Count table -> list of ((length, blocks tuple), count) on host.
+
+    Blocks are reference uint64 values (lane pair 2b, 2b+1 fused), ready
+    for the Counter materialization in api.counter.  Only the live prefix
+    is transferred (fetch_table); an n_out below the unique count raises.
+    """
+    w, lens, cnts, _n = fetch_table(u_words, u_lengths, u_counts, n_unique)
+    return _rows_to_table(w, lens, cnts)
+
+
+def _rows_to_table(w, lens, cnts):
+    # Counts are int32; a table row that overflowed it reads -1 (poison) -
+    # detect instead of silently corrupting (the reference's Python ints
+    # are unbounded).
+    cnts = np.asarray(cnts)
+    if len(cnts) and int(cnts.min()) < 0:
+        raise OverflowError(
+            "count table entry exceeded int32; merge in smaller pieces")
+    w = np.asarray(w).astype(np.uint64)
+    if w.shape[1] % 2:  # odd lane count: pad to a full 64-bit block
+        w = np.pad(w, ((0, 0), (0, 1)))
+    blocks64 = w[:, 0::2] | (w[:, 1::2] << np.uint64(32))
+    out = []
+    for i in range(len(lens)):
+        length = int(lens[i])
+        nblocks = max(1, -(-length // 32))
+        out.append(((length, tuple(int(b) for b in blocks64[i, :nblocks])),
+                    int(cnts[i])))
+    return out

@@ -1,9 +1,10 @@
-"""ctypes bindings of the native host library (csrc/fastq_index.cpp) that
-the UMI slice calls, from shortseq_tpu/io/native.py.
+"""ctypes bindings of the native host library (csrc/fastq_index.cpp), from
+shortseq_tpu/io/native.py.
 
 The library is built by shortseq_torch/_build.py at first use.  Host
-code keeps the JAX package's behaviour when it is missing: every function
-here returns None, and the callers take their pure-Python paths.
+code keeps the JAX package's behaviour when it is missing (or when
+SHORTSEQ_TORCH_FORCE_PYTHON=1): every function here returns None, and the
+callers take their pure-Python paths.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ def get_lib():
     with _lock:
         if not _bound:
             _bound = True
+            if _build.force_python():
+                return None
             path = _build.build_host()
             if path is not None:
                 _lib = ctypes.CDLL(str(path))
@@ -48,9 +51,19 @@ def _bind(lib) -> None:
     lib.ssq_gather_padded.argtypes = [c_char_p, p_i64, p_i32, i64, i64, p_u8]
     lib.ssq_max_length.restype = i32
     lib.ssq_max_length.argtypes = [p_i32, i64]
+    lib.ssq_fastq_sync.restype = i64
+    lib.ssq_fastq_sync.argtypes = [c_char_p, i64, i64]
+    lib.ssq_gather_pack.restype = i64
+    lib.ssq_gather_pack.argtypes = [c_char_p, p_i64, p_i32, i64, i64, p_u32]
+    lib.ssq_host_count.restype = i64
+    lib.ssq_host_count.argtypes = [p_u32, p_i32, i64, i64, p_u32, p_i32,
+                                   p_i64]
     lib.ssq_host_count_inv.restype = i64
     lib.ssq_host_count_inv.argtypes = [p_u32, p_i32, i64, i64, p_u32, p_i32,
                                        p_i64, p_i64]
+    lib.ssq_host_count_w.restype = i64
+    lib.ssq_host_count_w.argtypes = [p_u32, p_i32, p_i64, i64, i64, p_u32,
+                                     p_i32, p_i64]
     lib.ssq_greedy_absorb.restype = None
     lib.ssq_greedy_absorb.argtypes = [p_i64, p_i64, p_i64, p_i64, i64, i32,
                                       p_i64]
@@ -60,12 +73,26 @@ def _as_ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def _fastq_index(lib, data: bytes):
-    """(starts int64, lengths int32) of every sequence line of a FASTQ
-    buffer."""
+def fastq_index_native(data: bytes,
+                       byte_range: tuple[int, int] | None = None):
+    """Index a FASTQ byte buffer: (synced data, starts int64, lengths int32)
+    of every sequence line, without gathering any bytes.  Returns None when
+    the native library is missing.
+
+    byte_range (lo, hi) restricts parsing to the records whose boundaries
+    ssq_fastq_sync finds inside [lo, hi) (the streamed ingest's slices).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
     n = len(data)
+    if byte_range is not None:
+        lo = lib.ssq_fastq_sync(data, n, byte_range[0])
+        hi = lib.ssq_fastq_sync(data, n, byte_range[1])
+        data = data[lo:hi]
+        n = len(data)
     if n == 0:
-        return np.zeros(0, np.int64), np.zeros(0, np.int32)
+        return data, np.zeros(0, np.int64), np.zeros(0, np.int32)
     # One record per 4 lines, plus slack for the parallel indexer's
     # per-span rounding on malformed files; an overflow reports the exact
     # count and is retried once with it.
@@ -77,9 +104,39 @@ def _fastq_index(lib, data: bytes):
             data, n, _as_ptr(starts, ctypes.c_int64),
             _as_ptr(lengths, ctypes.c_int32), cap)
         if n_reads >= 0:
-            return starts[:n_reads], lengths[:n_reads]
+            return data, starts[:n_reads], lengths[:n_reads]
         cap = -n_reads
     raise RuntimeError("fastq index capacity unstable")
+
+
+def gather_pack_native(data: bytes, starts: np.ndarray, lengths: np.ndarray,
+                       width: int):
+    """Gather + 2-bit pack indexed rows straight from the file buffer:
+    [N] (starts, lengths) -> [N, width//16] uint32 in the reference bit
+    layout, zero-padded past each length (rows longer than width are
+    truncated - callers bucket by width first).  Returns None when the
+    native library is missing; raises the reference's invalid-base message
+    with the offending character."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    assert width % 16 == 0
+    n = len(starts)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    words = np.empty((n, width // 16), dtype=np.uint32)
+    bad = lib.ssq_gather_pack(
+        data, _as_ptr(starts, ctypes.c_int64),
+        _as_ptr(lengths, ctypes.c_int32), n, width,
+        _as_ptr(words, ctypes.c_uint32))
+    if bad:
+        from ..constants import UNSUPPORTED_BASE_MSG
+        from ..oracle import first_invalid_char
+
+        i = bad - 1
+        row = data[starts[i]:starts[i] + min(int(lengths[i]), width)]
+        raise Exception(f"{UNSUPPORTED_BASE_MSG}: {first_invalid_char(row)}")
+    return words
 
 
 def fastq_matrix_native(data: bytes, pad_to: int = 16):
@@ -88,7 +145,7 @@ def fastq_matrix_native(data: bytes, pad_to: int = 16):
     lib = get_lib()
     if lib is None:
         return None
-    starts, lengths = _fastq_index(lib, data)
+    data, starts, lengths = fastq_index_native(data)
     n_reads = len(starts)
     if n_reads == 0:
         return np.zeros((0, pad_to), dtype=np.uint8), lengths
@@ -102,11 +159,14 @@ def fastq_matrix_native(data: bytes, pad_to: int = 16):
     return mat, lengths
 
 
-def host_count_native(words: np.ndarray, lengths: np.ndarray):
+def host_count_native(words: np.ndarray, lengths: np.ndarray,
+                      return_inverse: bool = False):
     """Exact dedup of packed rows on the host: [N, W] uint32 + [N] int32 ->
-    (unique words [M, W], lengths [M] int32, counts [M] int64, inverse
-    [N] int64) - the JAX package's return_inverse=True form, the only one
-    the slice calls.  Returns None when the native library is missing."""
+    (unique words [M, W], lengths [M] int32, counts [M] int64[, inverse
+    [N] int64]).  Threaded partitioned hash count (csrc ssq_host_count),
+    the host engine of the count path.  With return_inverse, inverse[i]
+    is the output-table index of input row i.  Returns None when the
+    native library is missing."""
     lib = get_lib()
     if lib is None:
         return None
@@ -116,13 +176,44 @@ def host_count_native(words: np.ndarray, lengths: np.ndarray):
     out_w = np.empty((n, wpr), dtype=np.uint32)
     out_l = np.empty(n, dtype=np.int32)
     out_c = np.empty(n, dtype=np.int64)
-    inverse = np.empty(n, dtype=np.int64)
-    m = lib.ssq_host_count_inv(
+    if return_inverse:
+        inverse = np.empty(n, dtype=np.int64)
+        m = lib.ssq_host_count_inv(
+            _as_ptr(words, ctypes.c_uint32), _as_ptr(lengths, ctypes.c_int32),
+            n, wpr, _as_ptr(out_w, ctypes.c_uint32),
+            _as_ptr(out_l, ctypes.c_int32), _as_ptr(out_c, ctypes.c_int64),
+            _as_ptr(inverse, ctypes.c_int64))
+        return out_w[:m].copy(), out_l[:m].copy(), out_c[:m].copy(), inverse
+    m = lib.ssq_host_count(
         _as_ptr(words, ctypes.c_uint32), _as_ptr(lengths, ctypes.c_int32),
         n, wpr, _as_ptr(out_w, ctypes.c_uint32),
-        _as_ptr(out_l, ctypes.c_int32), _as_ptr(out_c, ctypes.c_int64),
-        _as_ptr(inverse, ctypes.c_int64))
-    return out_w[:m].copy(), out_l[:m].copy(), out_c[:m].copy(), inverse
+        _as_ptr(out_l, ctypes.c_int32), _as_ptr(out_c, ctypes.c_int64))
+    return out_w[:m].copy(), out_l[:m].copy(), out_c[:m].copy()
+
+
+def host_count_weighted_native(words: np.ndarray, lengths: np.ndarray,
+                               weights: np.ndarray):
+    """Weighted exact dedup of packed rows: like host_count_native but
+    each row contributes weights[i] instead of 1 - the exact merge of
+    already-deduped (rows, counts) tables (the streamed host engine
+    concatenates per-slice unique tables and re-counts with counts as
+    weights).  Returns None when the native library is missing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    weights = np.ascontiguousarray(weights, dtype=np.int64)
+    n, wpr = words.shape
+    out_w = np.empty((n, wpr), dtype=np.uint32)
+    out_l = np.empty(n, dtype=np.int32)
+    out_c = np.empty(n, dtype=np.int64)
+    m = lib.ssq_host_count_w(
+        _as_ptr(words, ctypes.c_uint32), _as_ptr(lengths, ctypes.c_int32),
+        _as_ptr(weights, ctypes.c_int64), n, wpr,
+        _as_ptr(out_w, ctypes.c_uint32), _as_ptr(out_l, ctypes.c_int32),
+        _as_ptr(out_c, ctypes.c_int64))
+    return out_w[:m].copy(), out_l[:m].copy(), out_c[:m].copy()
 
 
 def greedy_absorb_native(indptr: np.ndarray, indices: np.ndarray,

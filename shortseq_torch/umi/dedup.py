@@ -57,13 +57,7 @@ _OVERFLOW_K = 128
 _DENSE_ROWS_BATCH = 256
 
 
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' needs a CUDA device and none is available; pass "
-            "device='cpu' to run the plain PyTorch versions")
-    return device
+_resolve_device = _build.resolve_device
 
 
 def _pack_validate_matrix(mat, lengths, device):
@@ -121,7 +115,8 @@ def _unique_rows(mat):
     if pad:
         mat = np.pad(mat, ((0, 0), (0, pad)))
     words = np.ascontiguousarray(mat).view(np.uint32)
-    res = host_count_native(words, np.full(n, ncol, np.int32))
+    res = host_count_native(words, np.full(n, ncol, np.int32),
+                            return_inverse=True)
     if res is None:
         return None
     uw, _, counts, inv = res

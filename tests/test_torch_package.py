@@ -31,10 +31,16 @@ def test_imports_with_jax_blocked():
         "    sys.modules[name] = None\n"
         "import shortseq_torch, shortseq_torch.umi.dedup\n"
         "import shortseq_torch.__main__, shortseq_torch.io.fastq\n"
-        "import shortseq_torch.ops\n"
+        "import shortseq_torch.ops, shortseq_torch.io.bgzf\n"
+        "import shortseq_torch.api, shortseq_torch.api.counter\n"
+        "import shortseq_torch.api.seq, shortseq_torch.oracle\n"
+        "import shortseq_torch.count, shortseq_torch.count.checkpoint\n"
+        "import shortseq_torch.count.ingest, shortseq_torch.utils\n"
         "from shortseq_torch import _build\n"
         "from shortseq_torch.io import native\n"
         "assert _build._cuda is None and not native._bound\n"
+        "assert not _build._objects_tried\n"
+        "assert 'BACKEND' not in vars(shortseq_torch.api)\n"
         "print(shortseq_torch.__version__)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -67,15 +73,48 @@ def test_cuda_without_card_raises():
         dedup_reads(["AAAACGT"], len_5p=4, device="cuda")
 
 
+@pytest.mark.parametrize("call", ["table", "counter", "matrix", "cli"])
+def test_device_engine_without_card_raises(tmp_path, capsys, call):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    import shortseq_torch as st
+    from shortseq_torch.__main__ import main
+    from shortseq_torch.api.counter import count_matrix_device
+
+    path = tmp_path / "r.fastq"
+    path.write_bytes(b"@r\nACGT\n+\nIIII\n")
+    if call == "cli":
+        assert main(["count", str(path), "--engine", "device"]) == 2
+        assert "CUDA" in capsys.readouterr().err
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if call == "table":
+            st.read_and_count_fastq_table(path, engine="device")
+        elif call == "counter":
+            st.read_and_count_fastq(path, engine="device", device="cuda")
+        else:
+            count_matrix_device(np.full((1, 16), 65, np.uint8),
+                                np.array([4], np.int32))
+
+
 def test_kernel_wrappers_count_no_cpu_launches():
+    import numpy as np
+
+    from shortseq_torch.api.counter import count_matrix_device
+    from shortseq_torch.count.device import group_count
     from shortseq_torch.ops import (hamming_pairwise_tiled,
                                     pack_and_validate_u32)
     from shortseq_torch.umi.dedup import dedup_umis, neighbor_extract
 
     wrappers = (pack_and_validate_u32, hamming_pairwise_tiled,
-                neighbor_extract)
+                neighbor_extract, group_count)
     before = [w.launches for w in wrappers]
     dedup_umis([b"AAAA", b"AAAT", b"GGGG"], device="cpu")
+    counts = count_matrix_device(np.full((3, 16), 65, np.uint8),
+                                 np.array([4, 4, 2], np.int32), device="cpu")
+    assert sorted(counts.values()) == [1, 2]
     assert [w.launches for w in wrappers] == before
 
 
