@@ -12,7 +12,11 @@ Phases, one line each; any failure raises and exits nonzero:
   kernels    each kernel against its plain PyTorch version on the card at
              the slices' shapes (integers: exact equality), with median
              CUDA-event times over 7 runs, L2 flushed before each run;
-             for D also the sort and the whole unique_count
+             for D also its edge cases (tile edges from
+             GROUP_TILE_ROWS, poison, int32 wraps, small n_out, PAD
+             rows, N = 1, W = 1 and 5), a one-key shape, each of its
+             launches' device times (torch.profiler), the sort and the
+             whole unique_count
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
              threshold 1): a valid partition, a 512-row slab of neighbour
              lists against the plain pairwise check, and a 5,000-unique
@@ -180,6 +184,19 @@ class Timer:
         return [statistics.median(t) for t in times]
 
 
+def exact(name, got, want):
+    """Raise unless each kernel output equals its plain version's; the
+    max abs error (0)."""
+    import torch
+
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g, w):
+            bad = (g != w).sum().item() if g.shape == w.shape else "shape"
+            raise AssertionError(f"{name}: kernel != plain ({bad})")
+    return max((g.long() - w.long()).abs().max().item()
+               for g, w in zip(got, want) if g.numel())
+
+
 # --- phases -----------------------------------------------------------------
 
 
@@ -234,14 +251,6 @@ def phase_kernels(torch, results):
     timer = Timer(torch)
     rng = np.random.default_rng(0)
     lines = []
-
-    def exact(name, got, want):
-        for g, w in zip(got, want):
-            if g.shape != w.shape or not torch.equal(g, w):
-                bad = (g != w).sum().item() if g.shape == w.shape else "shape"
-                raise AssertionError(f"{name}: kernel != plain ({bad})")
-        return max((g.long() - w.long()).abs().max().item()
-                   for g, w in zip(got, want) if g.numel())
 
     # A: pack + validate.  1% of bytes invalid, random lengths.
     alpha = np.frombuffer(b"ACGT", np.uint8)
@@ -334,16 +343,141 @@ def phase_kernels(torch, results):
         replaces="shortseq_tpu/umi/dedup.py:180",
         max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1])
 
-    # D: the group count after unique_count's sort.  Random 32-nt-class
-    # rows (nearly all unique), 150-nt rows drawn Zipf(1.2) from 200,000
-    # keys (one group of ~390,000 rows), and 96-nt-class rows from a pool.
-    from shortseq_torch.count import device as cdev
+    results["unique_count"] = kernel_d(torch, timer, rng, lines)
+    for line in lines:
+        print("  " + line, flush=True)
+    return "all kernels equal their plain versions"
 
-    errs, d_main = [], None
+
+def d_edge_cases(tile):
+    """Kernel D's exactness cases, built from its tile's row count:
+    (name, words uint32 [N, W], lengths, weights, n_out).  Groups keep
+    the order of `sizes` after the sort (lane 0 numbers them), so their
+    edges fall where the sizes put them."""
+    import numpy as np
+
+    pad = 2**31 - 1
+    rng = np.random.default_rng(11)
+
+    def groups(sizes, w, live=True):
+        keys = rng.integers(0, 2**32, size=(len(sizes), w),
+                            dtype=np.uint64).astype(np.uint32)
+        keys[:, 0] = np.arange(len(sizes))
+        rows = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+        return keys[rows], np.full(len(rows), 16 if live else pad, np.int32)
+
+    def ones(words):
+        return np.ones(len(words), np.int32)
+
+    cases = []
+    # Groups of tile-1, tile and tile+1 rows (the first ends on a tile's
+    # second-last row, the third on a tile's last), then one that starts
+    # mid-tile and covers the next tiles whole; W = 1 and 5 are rows that
+    # are not 16-byte aligned.
+    edges = [tile - 1, tile, tile + 1, tile // 2, 2 * tile + tile // 2 + 3, 7]
+    for w in (1, 2, 5, 6, 64):
+        words, lens = groups(edges, w)
+        cases.append((f"tile edges W={w}", words, lens,
+                      rng.integers(1, 5, size=len(lens)).astype(np.int32),
+                      None))
+    lens = np.repeat(np.array([4, 5, 6, 7], np.int32),
+                     [tile - 1, tile + 1, tile, 3])
+    cases.append(("length-only edges", np.zeros((len(lens), 2), np.uint32),
+                  lens, ones(lens), None))
+    words = np.array([[1, 0], [1, 0], [2, 0], [3, 0]], np.uint32)
+    cases.append(("poison, a group cancelling to 0", words,
+                  np.full(4, 16, np.int32),
+                  np.array([5, -5, 2, 2], np.int32), None))
+    words, lens = groups([tile + 1, 3, tile], 2)
+    wts = ones(words)
+    wts[len(wts) // 2] = -1
+    cases.append(("poison across tiles", words, lens, wts, None))
+    for name, wts in (("int32 wrap, 3 x 1.9e9", [1_900_000_000] * 3),
+                      ("int32 wrap negative, 2 x 2e9", [2_000_000_000] * 2),
+                      ("negative sum, 2 x -2e9", [-2_000_000_000] * 2)):
+        cases.append((name, np.full((len(wts), 2), 0x78, np.uint32),
+                      np.full(len(wts), 4, np.int32),
+                      np.array(wts, np.int32), None))
+    words, lens = groups([tile + 5], 2)
+    cases.append(("int32 wrap across a tile edge", words, lens,
+                  np.full(len(lens), 1_100_000, np.int32), None))
+    words, lens = groups([3] * 1500 + [tile + 2], 2)
+    for n_out in (1, 1000):
+        cases.append((f"n_out {n_out} below 1501 groups", words, lens,
+                      ones(words), n_out))
+    words, lens = groups([tile, 4, tile + 3], 2, live=False)
+    cases.append(("all PAD, stale words in 3 dead groups", words, lens,
+                  rng.integers(-3, 5, size=len(lens)).astype(np.int32), None))
+    words, lens = groups([tile - 3, 1, 7, tile], 6)
+    lens[rng.random(len(lens)) < 0.4] = pad
+    cases.append(("live rows then PAD rows with stale words", words, lens,
+                  np.where(lens == pad, -7, 2).astype(np.int32), None))
+    for name, length in (("N = 1", 4), ("N = 1, PAD", pad)):
+        cases.append((name, np.array([[5, 6]], np.uint32),
+                      np.array([length], np.int32), np.array([3], np.int32),
+                      None))
+    return cases
+
+
+def d_launch_split(torch, fn, runs=3):
+    """Device ms per call of D's launches (tile, finish, and the fills of
+    its scratch), from torch.profiler; L2 is flushed before each call by
+    an add over 128 MiB, which no row below matches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            flush.add_(1)
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        for tag in ("group_tile", "group_finish", "fill"):
+            if tag in e.key.lower():
+                split[tag] = split.get(tag, 0.0) + us / 1000 / runs
+    if not split.get("group_tile"):
+        return "launch split not measured (the profiler saw no device time)"
+    return "launches: " + ", ".join(f"{k} {v:.4f} ms"
+                                    for k, v in split.items())
+
+
+def kernel_d(torch, timer, rng, lines):
+    """Kernel D against its plain version: the edge cases of d_edge_cases
+    (exact, not timed), then the timed shapes: random 32-nt-class rows
+    (nearly all unique), 150-nt rows drawn Zipf(1.2) from 200,000 keys
+    (one group of ~390,000 rows), 96-nt-class rows from a pool, and
+    32-nt-class rows that are all one key (the worst skew)."""
+    import numpy as np
+
+    from shortseq_torch.count import device as cdev
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    errs = []
+    cases = d_edge_cases(cdev.GROUP_TILE_ROWS)
+    for name, words, lens, wts, n_out in cases:
+        words = from_numpy_u32(words).cuda()
+        lens, wts = torch.from_numpy(lens).cuda(), torch.from_numpy(wts).cuda()
+        n_out = len(lens) if n_out is None else n_out
+        perm = cdev.sort_rows(words, lens)
+        errs.append(exact(f"D {name}",
+                          cdev.group_count(words, lens, wts, perm, n_out),
+                          cdev.group_count_plain(words, lens, wts, perm,
+                                                 n_out)))
+    torch.cuda.synchronize()
+    lines.append(f"D: {len(cases)} edge cases exact (tile "
+                 f"{cdev.GROUP_TILE_ROWS} rows)")
+    d_main = None
     for n, w, keys, zipf, lens in (
             (10_000_000, 2, None, False, (15, 32)),
             (2_000_000, 64, 200_000, True, (150, 150)),
-            (1_000_000, 6, 300_000, False, (33, 96))):
+            (1_000_000, 6, 300_000, False, (33, 96)),
+            (10_000_000, 2, 1, False, (24, 24))):
         m = keys or n
         pool = torch.from_numpy(rng.integers(-2**31, 2**31, size=(m, w),
                                              dtype=np.int64)
@@ -364,25 +498,23 @@ def phase_kernels(torch, results):
         errs.append(exact(
             f"D [{n},{w}]",
             cdev.group_count(words, lengths, weights, perm, n), want))
-        biggest = int(want[2].max())
+        biggest, groups = int(want[2].max()), int(want[3])
         del want
         ms, plain_ms, sort_ms, total_ms = timer([
             lambda: cdev.group_count(words, lengths, weights, perm, n),
             lambda: cdev.group_count_plain(words, lengths, weights, perm, n),
             lambda: cdev.sort_rows(words, lengths),
             lambda: cdev.unique_count(words, lengths, weights)])
-        lines.append(f"D [{n},{w}] (largest group {biggest}): {ms:.4f} ms, "
-                     f"plain {plain_ms:.4f} ms; sort {sort_ms:.4f} ms; "
-                     f"unique_count {total_ms:.4f} ms")
+        split = d_launch_split(
+            torch, lambda: cdev.group_count(words, lengths, weights, perm, n))
+        lines.append(f"D [{n},{w}] ({groups} groups, largest {biggest}): "
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {split}; "
+                     f"sort {sort_ms:.4f} ms; unique_count {total_ms:.4f} ms")
         if d_main is None:
             d_main = (ms, plain_ms)
         del words, lengths, weights, perm
-    results["unique_count"] = dict(
-        source=SOURCE_D, replaces="shortseq_tpu/count/device.py:156",
-        max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1])
-    for line in lines:
-        print("  " + line, flush=True)
-    return "all kernels equal their plain versions"
+    return dict(source=SOURCE_D, replaces="shortseq_tpu/count/device.py:156",
+                max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1])
 
 
 class MainPath:

@@ -227,12 +227,13 @@ _CUDA_SIGNATURES = {
     # threshold, k, stream
     "ssq_neighbor_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                              _I32, _I32, _P],
-    # words, lengths, weights, perm, flags, poison, n, w, stream
-    "ssq_group_flags": [_P, _P, _P, _P, _P, _P, _I64, _I32, _P],
-    # words, lengths, weights, perm, flags, ends, poison, u_words,
-    # u_lengths, counts, n_unique, n, w, n_out, stream
-    "ssq_group_reduce": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
-                         _I32, _I64, _P],
+    # words, lengths, weights, perm, scratch, sums, u_words, u_lengths,
+    # n_unique, n, w, n_out, stream
+    "ssq_group_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
+                       _P],
+    # u_words, u_lengths, counts, sums, scratch, n_out, w, stream
+    "ssq_group_finish": [_P, _P, _P, _P, _P, _I64, _I32, _P],
+    "ssq_group_tile_rows": [],
 }
 
 

@@ -256,6 +256,16 @@ def count_indexed_device_table(data, starts, lengths, device="cuda"):
     return CountTable.from_device_tables(tables)
 
 
+def count_indexed_device(data, starts, lengths,
+                         device="cuda") -> ShortSeqCounter:
+    """Eager form of count_indexed_device_table: materializes the full
+    reference-identical dict.  The JAX package's `batch_size` argument is
+    left out: it only set how finely the host gathered, and the port's
+    gather (count/ingest.packed_buckets) has no such granularity."""
+    return count_indexed_device_table(data, starts, lengths,
+                                      device=device).to_counter()
+
+
 def count_indexed_host_table(data, starts, lengths):
     """Count indexed FASTQ rows entirely on the host: fused native gather +
     2-bit pack + bloom validate, threaded partitioned hash count (csrc
@@ -272,6 +282,13 @@ def count_indexed_host_table(data, starts, lengths):
     return CountTable.from_host_tables(
         host_count_native(words, sub_len)
         for words, sub_len in packed_buckets(data, starts, lengths))
+
+
+def count_indexed_host(data, starts, lengths) -> ShortSeqCounter | None:
+    """Eager form of count_indexed_host_table (the same table contents as
+    the device engine), or None when the native library is unavailable."""
+    table = count_indexed_host_table(data, starts, lengths)
+    return None if table is None else table.to_counter()
 
 
 def read_and_count_fastq(filename, engine: str = "auto",

@@ -9,8 +9,9 @@ Counting is sort-based grouping:
      least significant pair first, permuting by gathering the index.
   2. group_count (kernel D, shortseq_torch/csrc/count.cu): boundary
      flags, exact int64 group sums, one key row per group, n_unique over
-     the live prefix, pad normalization and the poison, all read through
-     the sort's permutation.  group_count_plain is its plain PyTorch
+     the live prefix, pad normalization and the poison, each sorted row
+     gathered once through the sort's permutation, in tiles of
+     GROUP_TILE_ROWS rows.  group_count_plain is its plain PyTorch
      version.
 
 The JAX package sorted rows of up to 6 lanes with one multi-operand
@@ -45,6 +46,12 @@ PAD_LENGTH = 2**31 - 1
 
 _INT32_MIN = -2**31
 _INT32_MAX = 2**31 - 1
+
+#: Sorted rows per tile of kernel D (kTileRows in csrc/count.cu): one
+#: block gathers, compares and sums a tile, and a group that crosses a
+#: tile edge combines its partial sums by atomics.  Edge-case tests build
+#: their groups from it.
+GROUP_TILE_ROWS = 2048
 
 
 def empty_table(width: int = 1, device="cpu", rows: int = 1):
@@ -121,8 +128,8 @@ def group_count_plain(words, lengths, weights, perm, n_out: int):
 
 
 def group_count(words, lengths, weights, perm, n_out: int):
-    """Kernel D: the group count of the rows in `perm` order (two launches
-    with a cumsum between them, counted as one launch of D).  A CUDA
+    """Kernel D: the group count of the rows in `perm` order (a tile
+    launch and a finishing launch, counted as one launch of D).  A CUDA
     tensor launches the kernel; a CPU tensor takes the plain version."""
     if words.device.type == "cpu":
         return group_count_plain(words, lengths, weights, perm, n_out)
@@ -135,22 +142,29 @@ def group_count(words, lengths, weights, perm, n_out: int):
         _build.check_operand(t, name, dtype, 1, dev)
         if t.shape[0] != n:
             raise ValueError(f"{name} has {t.shape[0]} rows, words has {n}")
-    flags = torch.empty(n, dtype=torch.int32, device=dev)
-    poison = torch.zeros(1, dtype=torch.int32, device=dev)
-    _build.launch("ssq_group_flags", words.data_ptr(), lengths.data_ptr(),
-                  weights.data_ptr(), perm.data_ptr(), flags.data_ptr(),
-                  poison.data_ptr(), n, w)
-    ends = torch.cumsum(flags, 0, dtype=torch.int32)
-    u_words = torch.zeros((n_out, w), dtype=torch.int32, device=dev)
-    u_lengths = torch.full((n_out,), PAD_LENGTH, dtype=torch.int32,
-                           device=dev)
-    counts = torch.zeros(n_out, dtype=torch.int32, device=dev)
+    if n > _INT32_MAX:
+        raise ValueError(f"{n} rows: kernel D counts at most 2^31 - 1")
+    tile_rows = _build.cuda_lib().ssq_group_tile_rows()
+    if tile_rows != GROUP_TILE_ROWS:
+        raise RuntimeError(f"kernel D was built with {tile_rows}-row tiles, "
+                           f"GROUP_TILE_ROWS is {GROUP_TILE_ROWS}")
+    tiles = -(-n // GROUP_TILE_ROWS)
+    # Zeroed: the tile counter, the poison word, the group total, one
+    # look-back state per tile, then one int64 sum per kept group.
+    scratch = torch.zeros(3 + tiles + min(n, n_out), dtype=torch.int64,
+                          device=dev)
+    sums = scratch[3 + tiles:]
+    u_words = torch.empty((n_out, w), dtype=torch.int32, device=dev)
+    u_lengths = torch.empty(n_out, dtype=torch.int32, device=dev)
+    counts = torch.empty(n_out, dtype=torch.int32, device=dev)
     n_unique = torch.zeros((), dtype=torch.int32, device=dev)
-    _build.launch("ssq_group_reduce", words.data_ptr(), lengths.data_ptr(),
-                  weights.data_ptr(), perm.data_ptr(), flags.data_ptr(),
-                  ends.data_ptr(), poison.data_ptr(), u_words.data_ptr(),
-                  u_lengths.data_ptr(), counts.data_ptr(),
+    _build.launch("ssq_group_tile", words.data_ptr(), lengths.data_ptr(),
+                  weights.data_ptr(), perm.data_ptr(), scratch.data_ptr(),
+                  sums.data_ptr(), u_words.data_ptr(), u_lengths.data_ptr(),
                   n_unique.data_ptr(), n, w, n_out)
+    _build.launch("ssq_group_finish", u_words.data_ptr(),
+                  u_lengths.data_ptr(), counts.data_ptr(), sums.data_ptr(),
+                  scratch.data_ptr(), n_out, w)
     group_count.launches += 1
     return u_words, u_lengths, counts, n_unique
 

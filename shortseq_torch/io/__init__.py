@@ -1,5 +1,7 @@
 """Host I/O: FASTQ parsing and the native host library's bindings."""
 
-from .fastq import gather_pack, read_fastq_index, read_fastq_matrix
+from .fastq import (fastq_line_index, gather_pack, read_fastq_index,
+                    read_fastq_lines, read_fastq_matrix, read_fastq_seqs)
 
-__all__ = ["gather_pack", "read_fastq_index", "read_fastq_matrix"]
+__all__ = ["fastq_line_index", "gather_pack", "read_fastq_index",
+           "read_fastq_lines", "read_fastq_matrix", "read_fastq_seqs"]

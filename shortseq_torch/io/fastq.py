@@ -1,7 +1,9 @@
 """FASTQ ingest: the sequence line (2nd of every 4) of each record, from
 shortseq_tpu/io/fastq.py.
 
-Two consumers:
+Three consumers:
+  * read_fastq_lines / read_fastq_seqs -> the sequence lines as bytes or
+    as ShortSeq objects (the reference's fast_read.pyx surface).
   * read_fastq_index + gather_pack -> packed uint32 lanes straight from
     the file buffer (the count path: fused native gather + 2-bit pack +
     bloom validate, count/ingest.packed_buckets).  `byte_range` reads
@@ -141,6 +143,22 @@ def fastq_line_index(buf: np.ndarray):
     seq_starts = starts[1::4]
     seq_ends = nl[1::4]
     return seq_starts, seq_ends
+
+
+def read_fastq_lines(filename):
+    """Sequence lines as a list of bytes (newline stripped)."""
+    data = _read_bytes(filename)
+    if not data:
+        return []
+    return data.split(b"\n")[1::4]
+
+
+def read_fastq_seqs(filename):
+    """Sequence lines packed into ShortSeq objects, like the reference's
+    _read_fastq_short_seqs (fast_read.pyx:3-20)."""
+    from ..api import from_bytes
+
+    return [from_bytes(line) for line in read_fastq_lines(filename)]
 
 
 def read_fastq_matrix(filename, pad_to: int = 16):

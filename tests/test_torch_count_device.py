@@ -4,7 +4,8 @@ inputs.  Mirrors tests/test_count_device.py:45-210 and the wrap and n_out
 cases of tests/test_advice_fixes.py.
 
 For W <= 6 the two packages sort the same way, so every output array must
-be identical; for W > 6 the JAX package groups by a seeded row hash, so
+be identical (so the edge cases of kernel D's tiles, built from
+GROUP_TILE_ROWS, are held at W <= 6); for W > 6 the JAX package groups by a seeded row hash, so
 its table is in hash order and the live prefixes are compared as
 row-sorted arrays.
 
@@ -191,7 +192,9 @@ def test_sort_rows_is_stable_unsigned_lex(lanes):
     np.testing.assert_array_equal(perm.numpy(), np.lexsort(keys))
 
 
-@pytest.mark.parametrize("weights", [[5, -1, 2, 2], [1, -1, 2, 2]])
+@pytest.mark.parametrize("weights", [[5, -1, 2, 2], [1, -1, 2, 2],
+                                     [5, -5, 2, 2]],
+                         ids=["minus-one", "cancel-one", "cancel-to-zero"])
 def test_poison_closed_under_merge(weights):
     words = np.array([[1, 0], [1, 0], [2, 0], [3, 0]], np.uint32)
     lengths = np.full(4, 16, np.int32)
@@ -292,24 +295,109 @@ def test_merge_host_tuples_carries_jax_tables():
     assert int(empty[3]) == 0 and int(empty[1][0]) == PAD
 
 
+TILE = tdev.GROUP_TILE_ROWS
+
+
+def _ordered_groups(sizes, lanes, seed, live=True):
+    """Rows of len(sizes) groups of the given sizes, shuffled.  Lane 0
+    numbers the groups, so the sort puts them in the order of `sizes` and
+    their edges fall where the sizes put them (kernel D's tile edges)."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2**32, size=(len(sizes), lanes),
+                        dtype=np.uint64).astype(np.uint32)
+    keys[:, 0] = np.arange(len(sizes))
+    rows = rng.permutation(np.repeat(np.arange(len(sizes)), sizes))
+    return keys[rows], np.full(len(rows), 16 if live else PAD, np.int32)
+
+
+#: Kernel D's edge cases: name -> (sizes of the groups in sorted order,
+#: live?).  The sizes come from the tile's row count.
+EDGE_CASES = {
+    "one-group-of-5000": ([5000], True),
+    "tile-1,tile,tile+1": ([TILE - 1, TILE, TILE + 1, 7], True),
+    "mid-tile-across-tiles": ([TILE // 2, 2 * TILE + TILE // 2 + 3, 7],
+                              True),
+    "all-pad-stale-words": ([TILE, 4, TILE + 3], False),
+    "n-1": ([1], True),
+    "n-1-pad": ([1], False),
+}
+
+
+def _edge_case(name, lanes):
+    """(words, lengths, weights) of one EDGE_CASES entry; weights are
+    small and positive on live rows, anything on dead ones."""
+    sizes, live = EDGE_CASES[name]
+    words, lengths = _ordered_groups(sizes, lanes, seed=lanes, live=live)
+    rng = np.random.default_rng(lanes)
+    lo = 1 if live else -3
+    return words, lengths, rng.integers(lo, 5, size=len(lengths)) \
+        .astype(np.int32)
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 6])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_tile_edge_groups_match_jax(case, lanes):
+    words, lengths, weights = _edge_case(case, lanes)
+    j, t = _both(words, lengths, weights)
+    _assert_exact(j, t)
+    sizes, live = EDGE_CASES[case]
+    assert int(t[3]) == (len(sizes) if live else 0)
+    if live:
+        want = [int(weights[words[:, 0] == g].sum())
+                for g in range(len(sizes))]
+        assert t[2][:len(sizes)].tolist() == want
+
+
+def test_length_only_groups_across_tiles_match_jax():
+    # Equal words, groups told apart by length alone, edges on and next
+    # to the tile edges.
+    lengths = np.repeat(np.array([4, 5, 6, 7], np.int32),
+                        [TILE - 1, TILE + 1, TILE, 3])
+    j, t = _both(np.zeros((len(lengths), 2), np.uint32), lengths)
+    _assert_exact(j, t)
+    assert t[2][:4].tolist() == [TILE - 1, TILE + 1, TILE, 3]
+
+
 def test_kernel_d_matches_plain_on_card(cuda):
+    def check(words, lengths, weights, n_out=None):
+        words = from_numpy_u32(words).to(cuda)
+        lengths = torch.from_numpy(lengths).to(cuda)
+        weights = torch.from_numpy(np.asarray(weights, np.int32)).to(cuda)
+        n_out = len(lengths) if n_out is None else n_out
+        perm = tdev.sort_rows(words, lengths)
+        before = tdev.group_count.launches
+        got = tdev.group_count(words, lengths, weights, perm, n_out)
+        assert tdev.group_count.launches == before + 1
+        want = tdev.group_count_plain(words, lengths, weights, perm, n_out)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
     rng = np.random.default_rng(5)
     for lanes, n, keys in ((2, 100_000, 30_000), (6, 50_000, 1_000),
                            (64, 20_000, 300)):
         pool = rng.integers(0, 2**32, size=(keys, lanes),
                             dtype=np.uint64).astype(np.uint32)
-        words = from_numpy_u32(pool[rng.integers(0, keys, size=n)]).to(cuda)
-        lengths = torch.from_numpy(rng.choice(
-            np.array([7, 32, PAD], np.int32), size=n)).to(cuda)
-        weights = torch.from_numpy(
-            rng.integers(0, 5, size=n).astype(np.int32)).to(cuda)
-        perm = tdev.sort_rows(words, lengths)
-        before = tdev.group_count.launches
-        got = tdev.group_count(words, lengths, weights, perm, n)
-        assert tdev.group_count.launches == before + 1
-        want = tdev.group_count_plain(words, lengths, weights, perm, n)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+        check(pool[rng.integers(0, keys, size=n)],
+              rng.choice(np.array([7, 32, PAD], np.int32), size=n),
+              rng.integers(0, 5, size=n))
+    for lanes in (1, 2, 5, 6, 64):
+        for case in EDGE_CASES:
+            check(*_edge_case(case, lanes))
+    lengths = np.repeat(np.array([4, 5, 6, 7], np.int32),
+                        [TILE - 1, TILE + 1, TILE, 3])
+    check(np.zeros((len(lengths), 2), np.uint32), lengths,
+          np.ones(len(lengths)))
+    words = np.array([[1, 0], [1, 0], [2, 0], [3, 0]], np.uint32)
+    check(words, np.full(4, 16, np.int32), [5, -5, 2, 2])
+    for weights in ([1_900_000_000] * 3, [2_000_000_000] * 2,
+                    [-2_000_000_000] * 2):
+        check(np.full((len(weights), 2), 0x78, np.uint32),
+              np.full(len(weights), 4, np.int32), weights)
+    words, lengths = _ordered_groups([TILE + 5], 2, seed=7)
+    check(words, lengths, np.full(len(lengths), 1_100_000))
+    words, lengths = _ordered_groups([3] * 1500 + [TILE + 2], 2, seed=8)
+    for n_out in (1, 1000):
+        check(words, lengths, np.ones(len(lengths)), n_out=n_out)
 
 
 def test_counts_to_host_scattered_matches_jax():

@@ -223,6 +223,76 @@ def test_read_fastq_index_ranges_match_jax(tmp_path, monkeypatch, compress):
             np.testing.assert_array_equal(g[2], want[2])
 
 
+@pytest.mark.parametrize("case", ["normal", "no_final_newline", "empty"])
+def test_read_fastq_lines_and_seqs_match_jax(tmp_path, case):
+    import shortseq_torch.io as tio
+    import shortseq_tpu.io as jio
+
+    path = tmp_path / "r.fastq"
+    if case == "normal":
+        _write(path, _reads(9, n=100) + [""])
+    elif case == "no_final_newline":
+        path.write_bytes(b"@r0\nACGT\n+\nIIII\n@r1\nGGCC\n+\nIIII")
+    else:
+        path.write_bytes(b"")
+    lines = tio.read_fastq_lines(path)
+    assert lines == jio.read_fastq_lines(path)
+    assert len(lines) == {"normal": 101, "no_final_newline": 2,
+                          "empty": 0}[case]
+    seqs = tio.read_fastq_seqs(path)
+    assert [str(s) for s in seqs] == \
+        [str(s) for s in jio.read_fastq_seqs(path)] == \
+        [b.decode() for b in lines]
+    assert all(type(s) in (st.ShortSeq64, st.ShortSeq192, st.ShortSeqVar)
+               for s in seqs)
+    buf = np.frombuffer(path.read_bytes(), np.uint8)
+    if buf.size:
+        for a, b in zip(tio.fastq_line_index(buf), jio.fastq_line_index(buf)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("chunk_rows", [None, "256"])
+def test_count_indexed_eager_forms_match_jax(tmp_path, monkeypatch,
+                                             chunk_rows):
+    """count_indexed_device (device="cpu") and count_indexed_host on the
+    mixed-width file of tests/test_counter_fastq.py's engine tests, with
+    and without the 4-chunk transfer path."""
+    import random
+
+    from shortseq_tpu.api.counter import count_indexed_device as jax_device
+    from shortseq_tpu.api.counter import count_indexed_host as jax_host
+    from shortseq_torch.io.fastq import read_fastq_index
+
+    rng = random.Random(99)
+
+    def rand_read(lo, hi):
+        return "".join(rng.choice("ACTG")
+                       for _ in range(rng.randint(lo, hi)))
+
+    reads = ([rand_read(1, 32) for _ in range(120)]
+             + [rand_read(33, 96) for _ in range(40)]
+             + [rand_read(97, 200) for _ in range(20)])
+    reads = reads + reads[::3]
+    path = _write(tmp_path / "engines.fastq", reads)
+    if chunk_rows:
+        monkeypatch.setenv("SHORTSEQ_TORCH_H2D_CHUNK_ROWS", chunk_rows)
+        monkeypatch.setenv("SHORTSEQ_TPU_H2D_CHUNK_ROWS", chunk_rows)
+    data, starts, lengths = read_fastq_index(path)
+    oracle = dict(collections.Counter(reads))
+    got = tcounter.count_indexed_device(data, starts, lengths, device="cpu")
+    want = jax_device(data, starts, lengths)
+    assert type(got) is tcounter.ShortSeqCounter
+    assert {str(k): v for k, v in got.items()} == \
+        {str(k): v for k, v in want.items()} == oracle
+    host = tcounter.count_indexed_host(data, starts, lengths)
+    assert type(host) is tcounter.ShortSeqCounter
+    assert _items(host) == _items(jax_host(data, starts, lengths))
+    assert host == got
+    monkeypatch.setattr(tcounter, "count_indexed_host_table",
+                        lambda *a: None)
+    assert tcounter.count_indexed_host(data, starts, lengths) is None
+
+
 def test_plain_gzip_refuses_byte_range(tmp_path):
     from shortseq_torch.io.fastq import read_fastq_index
 
