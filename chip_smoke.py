@@ -5,7 +5,7 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A, B, C, D (nvcc, sm_90a, one process per source),
+  build      kernels A to G (nvcc, sm_90a, one process per source),
              the host library and the object extension (g++) from this
              checkout's sources, all started together, with the seconds
              each took, and the object backend
@@ -16,7 +16,11 @@ Phases, one line each; any failure raises and exits nonzero:
              GROUP_TILE_ROWS, poison, int32 wraps, small n_out, PAD
              rows, N = 1, W = 1 and 5), a one-key shape, each of its
              launches' device times (torch.profiler), the sort and the
-             whole unique_count
+             whole unique_count; kernel A's pack-only mode at [2M, 40]
+             (150-nt rows), E at [2M, 10], F static (8, 100) and ragged
+             at [2M, 10], G at [2M, 10] and [262144, 64], and the one-hot
+             pairwise product against B at [512] x [16384], W = 1, 2, 10,
+             64
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
              threshold 1): a valid partition, a 512-row slab of neighbour
              lists against the plain pairwise check, and a 5,000-unique
@@ -37,9 +41,23 @@ Phases, one line each; any failure raises and exits nonzero:
              whole-file table; `python -m shortseq_torch count --engine
              device --top 20` on the second file as a subprocess, equal
              to the in-process top 20
-  counters   kernels A, B, C and D all launched while phases umi_scale,
-             umi_cli and count drove the main path (counts reset just
-             before each run), D during count and A in count_matrix_device;
+  batch      2,000,000 reads of 150 nt (Zipf(1.2) from 200,000 molecules)
+             as a FASTQ -> read_fastq_matrix -> PackedBatch.from_matrix on
+             the card: decode() equal to the reads (kernel E, the copy to
+             the host and the host's strings timed apart), trim(8, 100) and
+             trim_ragged against Python slices on 10,000 rows, hamming
+             against a copy with known substitutions, a 4096-row block
+             against 131,072 rows through the calibrated pairwise selector
+             (the choice, never plain, and its times per lane width),
+             counts() equal to the host engine's table; pack_batch on
+             200,000 strings equal to from_matrix, and its invalid-base
+             error; to_objects() on 100,000 rows equal to pack(str);
+             umi_adjacency on 8,192 12-nt UMIs against the plain pairwise
+  counters   kernels A to G all launched while phases umi_scale, umi_cli,
+             count and batch drove the main path (counts reset just
+             before each run), D during count, A in count_matrix_device,
+             A's pack-only mode, E, F and G in batch, and the pairwise
+             choice in batch;
              the native host library loaded, the UMI matrix paths and the
              count path's device engine, 4-chunk transfer and streamed
              slices all taken
@@ -62,6 +80,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SOURCE = "shortseq_torch/csrc/kernels.cu"
 SOURCE_D = "shortseq_torch/csrc/count.cu"
+SOURCE_BATCH = "shortseq_torch/csrc/batch.cu"
 
 
 def phase(name, fn, *args):
@@ -344,6 +363,7 @@ def phase_kernels(torch, results):
         max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1])
 
     results["unique_count"] = kernel_d(torch, timer, rng, lines)
+    results.update(batch_kernels(torch, timer, rng, lines))
     for line in lines:
         print("  " + line, flush=True)
     return "all kernels equal their plain versions"
@@ -517,21 +537,122 @@ def kernel_d(torch, timer, rng, lines):
                 max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1])
 
 
+def batch_kernels(torch, timer, rng, lines):
+    """Kernel A's pack-only mode, E, F and G against their plain versions
+    at the batch phase's shapes (2M rows of 150 nt: 40 byte lanes, 10
+    packed lanes), G also at 64 lanes, and the one-hot pairwise product
+    against kernel B at the calibration shape."""
+    import numpy as np
+
+    from shortseq_torch import batch
+    from shortseq_torch.ops import bitpack, hamming, pairwise
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    out = {}
+    n = 2_000_000
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    mat = np.full((n, 160), 1, np.uint8)            # PAD_BYTE past 150
+    mat[:, :150] = alpha[rng.integers(0, 4, size=(n, 150), dtype=np.uint8)]
+    x = from_numpy_u32(mat.view(np.uint32)).cuda()
+    del mat
+
+    def entry(name, source, replaces, errs, times):
+        out[name] = dict(source=source, replaces=replaces,
+                         max_abs_err=max(errs), ms=times[0],
+                         plain_ms=times[1])
+
+    err = exact("A pack-only [2M,40]", [bitpack.pack_words_u32(x)],
+                [bitpack.pack_words_plain(x)])
+    t = timer([lambda: bitpack.pack_words_u32(x),
+               lambda: bitpack.pack_words_plain(x)])
+    lines.append(f"A pack-only [2M,40]: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+    entry("pack_words", SOURCE, "shortseq_tpu/ops/bitpack.py:116", [err], t)
+
+    words = bitpack.pack_words_u32(x)
+    del x
+    err = exact("E [2M,10]", [bitpack.unpack_ascii(words)],
+                [bitpack.unpack_ascii_plain(words)])
+    t = timer([lambda: bitpack.unpack_ascii(words),
+               lambda: bitpack.unpack_ascii_plain(words)])
+    lines.append(f"E [2M,10]: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+    entry("unpack_ascii", SOURCE_BATCH, "shortseq_tpu/ops/bitpack.py:148",
+          [err], t)
+
+    lens = torch.full((n,), 150, dtype=torch.int32, device="cuda")
+    starts = torch.from_numpy(
+        rng.integers(0, 41, size=n).astype(np.int32)).cuda()
+    keep = torch.from_numpy(
+        rng.integers(60, 151, size=n).astype(np.int32)).cuda()
+    static = (words, lens, 8, 100, 7)
+    ragged = (words, lens, starts, keep, 10)
+    errs = [exact("F static (8, 100) [2M,10]", batch.trim_words(*static),
+                  batch.trim_words_plain(*static)),
+            exact("F ragged [2M,10]", batch.trim_words_ragged(*ragged),
+                  batch.trim_words_ragged_plain(*ragged))]
+    t_static = timer([lambda: batch.trim_words(*static),
+                      lambda: batch.trim_words_plain(*static)])
+    t_ragged = timer([lambda: batch.trim_words_ragged(*ragged),
+                      lambda: batch.trim_words_ragged_plain(*ragged)])
+    lines.append(f"F static (8, 100) [2M,10]: {t_static[0]:.4f} ms, plain "
+                 f"{t_static[1]:.4f} ms; ragged (starts 0-40, lengths "
+                 f"60-150): {t_ragged[0]:.4f} ms, plain {t_ragged[1]:.4f} ms")
+    entry("trim_words", SOURCE_BATCH, "shortseq_tpu/batch.py:56", errs,
+          t_static)
+
+    errs, g_main = [], None
+    other = words.roll(1, 0)
+    wide = [torch.from_numpy(rng.integers(-2**31, 2**31, size=(262144, 64),
+                                          dtype=np.int64)
+                             .astype(np.int32)).cuda() for _ in range(2)]
+    for name, a, b in (("[2M,10]", words, other),
+                       ("[262144,64]", wide[0], wide[1])):
+        errs.append(exact(f"G {name}", [hamming.hamming_rows(a, b)],
+                          [hamming.hamming_rows_plain(a, b)]))
+        t = timer([lambda: hamming.hamming_rows(a, b),
+                   lambda: hamming.hamming_rows_plain(a, b)])
+        lines.append(f"G {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+        g_main = g_main or t
+    entry("hamming_rows", SOURCE_BATCH, "shortseq_tpu/ops/hamming.py:26",
+          errs, g_main)
+    del words, other, wide, lens, starts, keep
+
+    for w in (1, 2, 10, 64):
+        a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, w),
+                                          dtype=np.int64)
+                             .astype(np.int32)).cuda()
+        b = torch.from_numpy(rng.integers(-2**31, 2**31, size=(16384, w),
+                                          dtype=np.int64)
+                             .astype(np.int32)).cuda()
+        b[:512] = a ^ (1 << 2 * (w % 16))         # near-identical rows
+        exact(f"onehot W={w}", [hamming.hamming_pairwise_onehot(a, b)],
+              [pairwise.hamming_pairwise_tiled(a, b)])
+        t = timer([lambda: hamming.hamming_pairwise_onehot(a, b),
+                   lambda: pairwise.hamming_pairwise_tiled(a, b)])
+        lines.append(f"onehot [512]x[16384] W={w}: {t[0]:.4f} ms, kernel B "
+                     f"{t[1]:.4f} ms (equal)")
+    return out
+
+
 class MainPath:
-    """Launch counts of kernels A, B, C and D over the main path's runs
+    """Launch counts of kernels A to G over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
     (`last`)."""
 
     def __init__(self):
+        from shortseq_torch import batch
         from shortseq_torch.count import device as cdev
-        from shortseq_torch.ops import bitpack, pairwise
+        from shortseq_torch.ops import bitpack, hamming, pairwise
         from shortseq_torch.umi import dedup
 
         self.wrappers = {"pack_validate": bitpack.pack_and_validate_u32,
                          "pairwise_hamming": pairwise.hamming_pairwise_tiled,
                          "neighbor_extract": dedup.neighbor_extract,
-                         "unique_count": cdev.group_count}
+                         "unique_count": cdev.group_count,
+                         "pack_words": bitpack.pack_words_u32,
+                         "unpack_ascii": bitpack.unpack_ascii,
+                         "trim_words": batch.trim_words_ragged,
+                         "hamming_rows": hamming.hamming_rows}
         self.launches = dict.fromkeys(self.wrappers, 0)
         self.by_phase = {}
         self.last = {}
@@ -829,6 +950,180 @@ def phase_count(torch, main_path, workdir, found):
     return f"files written in {gen_s:.3f} s; all checks passed"
 
 
+def phase_batch(torch, main_path, workdir, found):
+    import numpy as np
+
+    import shortseq_torch as st
+    from shortseq_torch.api.counter import count_indexed_host_table
+    from shortseq_torch.batch import _rows_to_str
+    from shortseq_torch.io.fastq import read_fastq_index, read_fastq_matrix
+    from shortseq_torch.ops import bitpack, hamming, pairwise
+
+    run = main_path.run
+    timer = Timer(torch)
+    lines = []
+    n, length = 2_000_000, 150
+    rng = np.random.default_rng(3)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    mols = alpha[rng.integers(0, 4, size=(200_000, length), dtype=np.uint8)]
+    reads = mols[zipf_pick(rng, 200_000, n)]
+    del mols
+    path = Path(workdir) / "batch_150nt.fastq"
+    write_fastq(path, reads)
+    mat, lengths = read_fastq_matrix(path)
+    assert mat.shape == (n, 160), mat.shape
+
+    def wall(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run("batch", fn, *args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    b, pack_s = wall(st.PackedBatch.from_matrix, mat, lengths, device="cuda")
+    lines.append(f"from_matrix [{n},160]: {pack_s:.3f} s")
+
+    # decode, then its three parts apart: kernel E (CUDA events), the copy
+    # of 16 B per word to the host, and the host's list of str.
+    seqs, decode_s = wall(b.decode)
+    if "".join(seqs).encode() != reads.tobytes():
+        raise AssertionError("decode() differs from the written reads")
+    e_ms = timer([lambda: bitpack.unpack_ascii(b.words)])[0]
+    ascii_d = bitpack.unpack_ascii(b.words)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ascii_h = ascii_d.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _rows_to_str(ascii_h, lengths)
+    host_s = time.perf_counter() - t0
+    lines.append(f"decode: {decode_s:.3f} s, {n * length / decode_s:.4g} "
+                 f"nt/s; kernel E {e_ms:.4f} ms, copy {copy_s:.3f} s "
+                 f"({ascii_h.nbytes / copy_s / 1e9:.2f} GB/s), host strings "
+                 f"{host_s:.3f} s")
+    del ascii_d, ascii_h
+
+    # trim and trim_ragged against Python slices on 10,000 rows.
+    sample = np.sort(rng.choice(n, 10_000, replace=False))
+    want = [seqs[i] for i in sample]
+    t, trim_s = wall(b.trim, 8, 100)
+    if run("batch", t[sample].decode) != [s[8:108] for s in want]:
+        raise AssertionError("trim(8, 100) differs from Python slices")
+    starts = rng.integers(0, 41, size=n).astype(np.int32)
+    keep = rng.integers(60, 151, size=n).astype(np.int32)
+    t, ragged_s = wall(b.trim_ragged, starts, keep)
+    if run("batch", t[sample].decode) != [
+            s[a:a + k] for s, a, k in zip(want, starts[sample], keep[sample])]:
+        raise AssertionError("trim_ragged differs from Python slices")
+    del t, seqs
+    lines.append(f"trim(8, 100): {trim_s:.3f} s, trim_ragged: "
+                 f"{ragged_s:.3f} s; 10,000 rows equal to Python slices")
+
+    # hamming against a copy with known substitutions (0-5 per row).
+    k = rng.integers(0, 6, size=n)
+    hit = np.zeros((n, length), bool)
+    hit[np.repeat(np.arange(n), k), rng.integers(0, length, size=k.sum())] = 1
+    change = np.arange(256, dtype=np.uint8)
+    change[np.frombuffer(b"ACGT", np.uint8)] = np.frombuffer(b"CGTA",
+                                                             np.uint8)
+    mat2 = mat.copy()
+    sub = mat2[:, :length]
+    sub[hit] = change[sub[hit]]
+    b2 = run("batch", st.PackedBatch.from_matrix, mat2, lengths,
+             device="cuda")
+    d, ham_s = wall(b.hamming, b2)
+    if not np.array_equal(d.cpu().numpy(), hit.sum(axis=1)):
+        raise AssertionError("hamming differs from the known substitutions")
+    lines.append(f"hamming: {ham_s:.3f} s, {int(hit.sum())} known "
+                 "substitutions found")
+    del b2, d, hit, mat2, sub
+
+    # pairwise: a 4096-row block against 131,072 rows (a 2 GB slab), by
+    # the calibrated choice, which is never the plain version.
+    block, table = b[:4096], b[:131072]
+    before = dict(pairwise.pairwise_hamming_auto.paths)
+    d, pair_s = wall(block.pairwise, table)
+    taken = {k: v - before[k]
+             for k, v in pairwise.pairwise_hamming_auto.paths.items()
+             if v != before[k]}
+    if set(taken) not in ({"tiled"}, {"onehot"}):
+        raise AssertionError(f"pairwise took {taken}")
+    found["batch_pairwise"] = taken
+    if not torch.equal(d, pairwise.hamming_pairwise_tiled(block.words,
+                                                          table.words)):
+        raise AssertionError("pairwise differs from kernel B")
+    if not torch.equal(d[:8], hamming.hamming_pairwise(block.words[:8],
+                                                       table.words)):
+        raise AssertionError("pairwise differs from the plain version")
+    del d
+    slab = timer([lambda: pairwise.hamming_pairwise_tiled(block.words,
+                                                          table.words),
+                  lambda: hamming.hamming_pairwise_onehot(block.words,
+                                                          table.words)],
+                 runs=3)
+    for w in (1, 2, 64):
+        pairwise.calibrate_pairwise(w, "cuda")
+    with open(pairwise._calib_file()) as f:
+        calib = json.load(f)
+    per_width = "; ".join(
+        f"W={key.rsplit('/w', 1)[1]}: {e['winner']} ("
+        + ", ".join(f"{c} {v * 1e3:.4f} ms" for c, v in e["times"].items())
+        + ")" for key, e in sorted(calib.items(),
+                                   key=lambda kv: int(kv[0].rsplit("w")[-1])))
+    if any(e["winner"] == "plain" for e in calib.values()):
+        raise AssertionError(f"calibration picked plain: {calib}")
+    lines.append(f"pairwise [4096]x[131072] W=10 by {list(taken)[0]}: "
+                 f"{pair_s:.3f} s incl. calibration; kernel B "
+                 f"{slab[0]:.4f} ms, onehot {slab[1]:.4f} ms")
+    lines.append(f"calibration at [512]x[16384]: {per_width}")
+
+    # counts() against the host engine's table of the same file.
+    counts, counts_s = wall(b.counts)
+    host = count_indexed_host_table(*read_fastq_index(path)).to_counter()
+    if counts != host or sum(counts.values()) != n:
+        raise AssertionError("counts() differs from the host engine")
+    lines.append(f"counts(): {counts_s:.3f} s, {len(counts)} keys equal to "
+                 "the host engine's")
+    del counts, host
+
+    # pack_batch on Python strings, and its invalid-base error.
+    strs = [reads[i].tobytes().decode() for i in range(200_000)]
+    pb, seqs_s = wall(st.pack_batch, strs, device="cuda")
+    if not torch.equal(pb.words, b.words[:200_000]):
+        raise AssertionError("pack_batch words differ from from_matrix's")
+    try:
+        run("batch", st.pack_batch, strs[:1000] + ["ACGN" * 10],
+            device="cuda")
+    except Exception as e:
+        if "Unsupported base character: N" not in str(e):
+            raise
+    else:
+        raise AssertionError("pack_batch accepted an N")
+    lines.append(f"pack_batch of 200,000 strings: {seqs_s:.3f} s, equal to "
+                 "from_matrix; invalid base raised")
+
+    objs, obj_s = wall(b[:100_000].to_objects)
+    if objs != [st.pack(s) for s in strs[:100_000]]:
+        raise AssertionError("to_objects() differs from pack(str)")
+    lines.append(f"to_objects() of 100,000 rows: {obj_s:.3f} s")
+    del objs, strs, pb, b
+
+    # umi_adjacency on 8,192 12-nt UMIs, half one substitution from the
+    # other half.
+    umis = rand_umis(4096, 12, seed=4)
+    umis += [u[:5] + (b"A" if u[5:6] != b"A" else b"C") + u[6:] for u in umis]
+    ub = st.pack_batch(umis, device="cuda")
+    adj, adj_s = wall(st.umi_adjacency, ub.words, ub.lengths.cpu().numpy(), 1)
+    want = (hamming.hamming_pairwise(ub.words, ub.words) <= 1).cpu().numpy()
+    if not np.array_equal(adj, want):
+        raise AssertionError("umi_adjacency differs from the plain pairwise")
+    lines.append(f"umi_adjacency of 8,192 UMIs: {adj_s:.3f} s, "
+                 f"{int(adj.sum())} edges incl. self")
+    for line in lines:
+        print("  " + line, flush=True)
+    return "all checks passed"
+
+
 # --- main -------------------------------------------------------------------
 
 
@@ -845,6 +1140,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from shortseq_torch.api import counter
     from shortseq_torch.io import native
+    from shortseq_torch.ops import pairwise
     from shortseq_torch.umi import dedup
 
     dev, results = {}, {}
@@ -870,9 +1166,12 @@ def main() -> int:
 
         setattr(module, name, counted)
     with tempfile.TemporaryDirectory() as workdir:
+        # Every run calibrates the pairwise selector afresh, into workdir.
+        pairwise._calib_file = lambda: str(Path(workdir) / "calib.json")
         phase("umi_scale", phase_umi_scale, torch, main_path)
         phase("umi_cli", phase_umi_cli, torch, main_path, workdir)
         phase("count", phase_count, torch, main_path, workdir, found)
+        phase("batch", phase_batch, torch, main_path, workdir, found)
     launches = main_path.launches
 
     def counters():
@@ -884,6 +1183,15 @@ def main() -> int:
         if found["matrix_pack_validate"] == 0:
             raise AssertionError("kernel A never launched in "
                                  "count_matrix_device")
+        in_batch = main_path.by_phase["batch"]
+        quiet = [k for k in ("pack_words", "unpack_ascii", "trim_words",
+                             "hamming_rows", "pack_validate")
+                 if in_batch[k] == 0]
+        if quiet:
+            raise AssertionError(f"never launched in phase batch: {quiet}")
+        if "tiled" in found["batch_pairwise"] and \
+                in_batch["pairwise_hamming"] == 0:
+            raise AssertionError("pairwise chose tiled but B never launched")
         if native.get_lib() is None:
             raise AssertionError("native host library not loaded")
         want = {"_dedup_umi_matrix", "_dedup_reads_matrix",
@@ -892,9 +1200,10 @@ def main() -> int:
         if set(paths) != want:
             raise AssertionError(f"paths not all taken: {paths}")
         return (f"launches {launches}, in phase count "
-                f"{main_path.by_phase['count']}, A in count_matrix_device "
-                f"{found['matrix_pack_validate']}; paths {paths} "
-                "(_h2d_chunks: buckets sent in 4 chunks)")
+                f"{main_path.by_phase['count']}, in phase batch {in_batch} "
+                f"(pairwise path {found['batch_pairwise']}), A in "
+                f"count_matrix_device {found['matrix_pack_validate']}; "
+                f"paths {paths} (_h2d_chunks: buckets sent in 4 chunks)")
 
     phase("counters", counters)
     kernels = [dict(name=name, route="cuda", source=r.get("source", SOURCE),

@@ -1,12 +1,15 @@
 """shortseq_torch: the PyTorch + CUDA port of shortseq_tpu.
 
-Two slices so far, each end to end on the card:
+Three slices so far, each end to end on the card:
   * exact FASTQ dedup: `read_and_count_fastq(_table)` with the host or the
     device engine, the lazy `CountTable`, `ShortSeqCounter`, and the
     ShortSeq objects (`pack`, `from_str`, ...); the device engine sorts
     with torch.sort and groups with kernel D (csrc/count.cu);
   * UMI read deduplication (`dedup_reads`, `dedup_umis`) through kernels
-    A, B and C (csrc/kernels.cu).
+    A, B and C (csrc/kernels.cu), `umi_adjacency` and the UMI objects;
+  * the batch API: `PackedBatch` / `pack_batch` (pack, decode, trim,
+    hamming, pairwise, counts, objects) through kernels A, E, F and G
+    (csrc/batch.cu) and the calibrated pairwise selector.
 
 Kernels build at first use on a CUDA tensor, and the object extension at
 first use of an object name; importing the package builds and
@@ -16,8 +19,10 @@ initialises nothing.  The port imports neither jax nor shortseq_tpu.
 from .api import (ShortSeqCounter, get_domain_64, get_domain_192,
                   get_domain_var, read_and_count_fastq,
                   read_and_count_fastq_table)
+from .batch import PackedBatch, pack_batch
 from .count import CountTable
-from .umi.dedup import dedup_reads, dedup_umis
+from .umi import (UMI, UMI3p, UMI5p, UMIboth, UMIFactory, dedup_reads,
+                  dedup_umis, umi_adjacency)
 
 MIN_VAR_NT, MAX_VAR_NT = get_domain_var()
 MIN_192_NT, MAX_192_NT = get_domain_192()
@@ -46,5 +51,7 @@ __all__ = [
     "read_and_count_fastq_table", "CountTable",
     "MIN_64_NT", "MAX_64_NT", "MIN_192_NT", "MAX_192_NT",
     "MIN_VAR_NT", "MAX_VAR_NT", "BACKEND",
-    "dedup_reads", "dedup_umis", "__version__",
+    "PackedBatch", "pack_batch",
+    "dedup_reads", "dedup_umis", "umi_adjacency",
+    "UMI", "UMI5p", "UMI3p", "UMIboth", "UMIFactory", "__version__",
 ]

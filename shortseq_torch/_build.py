@@ -219,7 +219,7 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _CUDA_SIGNATURES = {
-    # x, lengths, words, ok, n, w, pad_valid, stream
+    # x, lengths, words, ok (None: pack only), n, w, pad_valid, stream
     "ssq_pack_validate": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
     # a, b, out, n, m, w, stream
     "ssq_pairwise_hamming": [_P, _P, _P, _I64, _I64, _I32, _P],
@@ -234,6 +234,12 @@ _CUDA_SIGNATURES = {
     # u_words, u_lengths, counts, sums, scratch, n_out, w, stream
     "ssq_group_finish": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "ssq_group_tile_rows": [],
+    # words, out, total (words), stream
+    "ssq_unpack_ascii": [_P, _P, _I64, _P],
+    # words, lengths, starts, new_lengths, out, out_len, n, w, out_w, stream
+    "ssq_trim_words": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # a, b, out, n, w, stream
+    "ssq_hamming_rows": [_P, _P, _P, _I64, _I32, _P],
 }
 
 

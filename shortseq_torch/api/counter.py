@@ -120,6 +120,19 @@ def update_counter_from_host_table(counter, words, lengths, counts) -> None:
         setter(counter, key, counter.get(key, 0) + count)
 
 
+def table_to_counter(table) -> ShortSeqCounter:
+    """One device count table (words, lengths, counts, n_unique) ->
+    reference-identical ShortSeqCounter.  Goes through
+    count/device.table_to_host, so an n_out overflow and a poisoned count
+    raise instead of dropping or corrupting keys (the single-table case of
+    shortseq_tpu/dist/pipeline.py table_to_counter)."""
+    from ..count.device import table_to_host
+
+    out = ShortSeqCounter()
+    update_counter_from_host_table(out, *table_to_host(table))
+    return out
+
+
 def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
     """Count a padded ASCII read matrix on `device` and materialize a
     reference-identical ShortSeqCounter.

@@ -18,6 +18,7 @@ MAX_VAR_NT = 1024
 MAX_REPR_LEN = 75
 
 NT_PER_BLOCK = 32          # nts per reference uint64 block
+NT_PER_LANE = 16           # nts per 32-bit lane
 
 # code = (ascii >> 1) & 3: A=00, C=01, T=10, G=11; code -> char.
 CHARMAP = ("A", "C", "T", "G")
@@ -35,6 +36,11 @@ PAD_BYTE = 0x01
 UNSUPPORTED_BASE_MSG = "Unsupported base character"
 TOO_LONG_MSG = f"Sequences longer than {MAX_VAR_NT} bases are not supported."
 LENGTH_MISMATCH_MSG = "Hamming distance requires sequences of equal length"
+
+
+def lanes_for_length(length: int) -> int:
+    """Number of 32-bit lanes needed for `length` nucleotides."""
+    return -(-length // NT_PER_LANE)
 
 
 def blocks_for_length(length: int) -> int:

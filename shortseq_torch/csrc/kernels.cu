@@ -9,7 +9,9 @@
 // i / 16 at bits 2 * (i % 16), code = (ascii >> 1) & 3 (A=0 C=1 T=2 G=3).
 //
 // A: pack_validate     replaces shortseq_tpu/ops/bitpack.py
-//                      pack_and_validate_folded (fold = 1).
+//                      pack_and_validate_folded (fold = 1); with ok ==
+//                      nullptr it is the pack-only mode that replaces
+//                      pack_words_u32 / pack_folded / pack_rows.
 // B: pairwise_hamming  replaces shortseq_tpu/ops/pallas_kernels.py
 //                      _pairwise_tiled (the repo's one pallas_call).
 // C: neighbor_extract  replaces shortseq_tpu/umi/dedup.py _adjacency_score
@@ -34,6 +36,10 @@ namespace {
 // go to a group of G = min(32, pow2 >= W) neighbouring lanes of a warp, so
 // a warp's loads are contiguous, and the row's ok flag is an OR of the
 // group's fail bits by warp shuffles - no shared memory, no atomics.
+// Pack-only mode (VALIDATE = false, selected by ok == nullptr) makes the
+// same loads and stores with no bloom test, no length read and no ok
+// store: the codes of every lane are written whatever the bytes, so zero
+// padding packs to code 0 as in the JAX package's pack_rows.
 // ---------------------------------------------------------------------------
 
 // 4 ASCII bytes of a lane -> their 4 two-bit codes in the low byte.
@@ -64,7 +70,7 @@ __device__ __forceinline__ uint32_t tail_mask(int rem) {
   return 0x40404040u >> (8 * (4 - rem));
 }
 
-template <int G>
+template <int G, bool VALIDATE>
 __global__ void pack_validate_kernel(const uint4* __restrict__ x,
                                      const int32_t* __restrict__ lengths,
                                      uint32_t* __restrict__ words,
@@ -75,26 +81,43 @@ __global__ void pack_validate_kernel(const uint4* __restrict__ x,
       (int64_t)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
   uint32_t bad = 0;
   if (row < n) {
-    const int len = lengths[row];
+    const int len = VALIDATE ? lengths[row] : 0;
     for (int j = sub; j < w; j += G) {
       const uint4 v = x[row * w + j];
       const uint32_t lane[4] = {v.x, v.y, v.z, v.w};
       uint32_t out = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        uint32_t fail = bloom_fail_bits(lane[k]);
-        if (!pad_valid) fail &= tail_mask(len - 16 * j - 4 * k);
-        bad |= fail;
+        if (VALIDATE) {
+          uint32_t fail = bloom_fail_bits(lane[k]);
+          if (!pad_valid) fail &= tail_mask(len - 16 * j - 4 * k);
+          bad |= fail;
+        }
         out |= codes_byte(lane[k]) << (8 * k);
       }
       words[row * w + j] = out;
     }
   }
+  if (!VALIDATE) return;
   // Every lane of the warp reaches the shuffles (rows past n carry 0).
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     bad |= __shfl_xor_sync(0xffffffffu, bad, off);
   if (row < n && sub == 0) ok[row] = bad == 0 ? 1 : 0;
+}
+
+template <bool VALIDATE>
+void launch_pack(int g, dim3 grid, int threads, cudaStream_t s,
+                 const uint4* x, const int32_t* lengths, uint32_t* words,
+                 uint8_t* ok, int64_t n, int w, int pad_valid) {
+  switch (g) {
+    case 1: pack_validate_kernel<1, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+    case 2: pack_validate_kernel<2, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+    case 4: pack_validate_kernel<4, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+    case 8: pack_validate_kernel<8, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+    case 16: pack_validate_kernel<16, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+    default: pack_validate_kernel<32, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -260,14 +283,11 @@ int ssq_pack_validate(const void* x, const void* lengths, void* words,
   auto lv = (const int32_t*)lengths;
   auto wv = (uint32_t*)words;
   auto ov = (uint8_t*)ok;
-  switch (g) {
-    case 1: pack_validate_kernel<1><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-    case 2: pack_validate_kernel<2><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-    case 4: pack_validate_kernel<4><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-    case 8: pack_validate_kernel<8><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-    case 16: pack_validate_kernel<16><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-    default: pack_validate_kernel<32><<<grid, threads, 0, s>>>(xv, lv, wv, ov, n, w, pad_valid); break;
-  }
+  // ok == nullptr: pack-only mode (lengths and pad_valid are not read).
+  if (ov == nullptr)
+    launch_pack<false>(g, grid, threads, s, xv, lv, wv, ov, n, w, pad_valid);
+  else
+    launch_pack<true>(g, grid, threads, s, xv, lv, wv, ov, n, w, pad_valid);
   return (int)cudaGetLastError();
 }
 

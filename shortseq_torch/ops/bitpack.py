@@ -1,19 +1,23 @@
-"""Fused 2-bit pack + bloom validate (kernel A) and its plain version.
+"""2-bit pack + bloom validate (kernel A), pack only (kernel A's pack-only
+mode), unpack to ASCII (kernel E), each beside its plain version, and the
+per-row validity ops.
 
-Counterpart of shortseq_tpu/ops/bitpack.py pack_and_validate_u32 /
-pack_and_validate_rows.  Input: `[N, W4]` uint32 lanes (4 ASCII bytes per
-lane, little-endian), carried as int32, and `[N]` int32 lengths.  Output:
-`[N, W4 / 4]` packed words (16 codes per lane, LSB first,
-code = (c >> 1) & 3) and an `[N]` bool ok mask: a row is ok iff every
-byte before its length satisfies (c & 63) in {1, 3, 7, 20}.  With
-`pad_valid` the length mask is skipped (the caller promises the tail is
-PAD_BYTE).  Words of rows that are not ok are unspecified, as in the JAX
-package.
+Counterpart of shortseq_tpu/ops/bitpack.py.  Input of the packs: `[N, W4]`
+uint32 lanes (4 ASCII bytes per lane, little-endian), carried as int32,
+and `[N]` int32 lengths.  Output: `[N, W4 / 4]` packed words (16 codes per
+lane, LSB first, code = (c >> 1) & 3) and, when validating, an `[N]` bool
+ok mask: a row is ok iff every byte before its length satisfies
+(c & 63) in {1, 3, 7, 20}.  With `pad_valid` the length mask is skipped
+(the caller promises the tail is PAD_BYTE).  Words of rows that are not
+ok are unspecified, as in the JAX package.  The `_u32` functions take the
+lanes; their u8 twins take `[N, L]` uint8 tensors with L % 4 == 0.
 
 The JAX version's row folding and bf16 "poison" dot existed for the TPU's
 128-lane tiles and its matrix unit; neither means anything on Hopper, so
 kernel A is one read and one write (shortseq_torch/csrc/kernels.cu, note
-A: bound by HBM bytes).
+A: bound by HBM bytes), and `fold_for`, `pack_folded`, `_pack_folded_raw`,
+`pack_and_validate_folded`, `_compact_mats` and `_folded_mats` have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -26,6 +30,30 @@ from .lanes import from_numpy_u32, srl
 
 # Fail bit (0x40 per byte) mask by the count of row bytes left in a lane.
 _TAIL = (0, 0x40, 0x4040, 0x404040, 0x40404040)
+
+# Low 32 bits of ~BLOOM: the pass set {1, 3, 7, 20} of (byte & 63); bit 5
+# of a byte set always fails (constants.BLOOM).
+_BLOOM_PASS_LO = 0x0010008A
+
+# code -> ASCII through the reference charmap A, C, T, G.
+_CHARMAP_BYTES = (65, 67, 84, 71)
+
+
+def _u8_to_u32(ascii_u8: torch.Tensor) -> torch.Tensor:
+    """`[N, 4k]` uint8 -> `[N, k]` int32 lanes, little-endian within each
+    group of 4 bytes (a view of the same bytes)."""
+    if ascii_u8.dim() != 2 or ascii_u8.shape[1] % 4:
+        raise ValueError(f"byte matrix must be [N, L] with L a multiple of "
+                         f"4, got {tuple(ascii_u8.shape)}")
+    return ascii_u8.contiguous().view(torch.int32)
+
+
+def _check_pack_input(x: torch.Tensor) -> None:
+    if x.dim() != 2 or x.shape[1] % 4:
+        raise ValueError(
+            f"pack input must be [N, W4] lanes with W4 a multiple of 4, "
+            f"got {tuple(x.shape)} (pad the byte matrix to a multiple of "
+            "16 columns)")
 
 
 def _codes_byte(x: torch.Tensor) -> torch.Tensor:
@@ -46,40 +74,80 @@ def _bloom_fail_bits(x: torch.Tensor) -> torch.Tensor:
     return (diff + 0x3F3F3F3F) & 0x40404040
 
 
+def pack_words_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel A's pack-only mode (any device)."""
+    n, w4 = x.shape
+    codes = _codes_byte(x).reshape(n, w4 // 4, 4)
+    return (codes[..., 0] | (codes[..., 1] << 8) | (codes[..., 2] << 16)
+            | (codes[..., 3] << 24)).contiguous()
+
+
 def pack_and_validate_plain(x: torch.Tensor, lengths: torch.Tensor,
                             pad_valid: bool = False):
     """Plain PyTorch version of kernel A (any device)."""
     n, w4 = x.shape
-    codes = _codes_byte(x).reshape(n, w4 // 4, 4)
-    words = (codes[..., 0] | (codes[..., 1] << 8) | (codes[..., 2] << 16)
-             | (codes[..., 3] << 24))
+    words = pack_words_plain(x)
     fail = _bloom_fail_bits(x)
     if not pad_valid:
         lane = torch.arange(w4, dtype=torch.int32, device=x.device)
         rem = (lengths.to(torch.int32)[:, None] - 4 * lane).clamp(0, 4)
         tail = torch.tensor(_TAIL, dtype=torch.int32, device=x.device)
         fail = fail & tail[rem.long()]
-    return words.contiguous(), (fail == 0).all(dim=1)
+    return words, (fail == 0).all(dim=1)
+
+
+def _check_lanes_operand(x: torch.Tensor) -> None:
+    _build.check_operand(x, "x", torch.int32, 2, x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned for vector loads")
+
+
+def pack_words_u32(x: torch.Tensor) -> torch.Tensor:
+    """Pack `[N, W4]` lanes (W4 % 4 == 0) to `[N, W4 / 4]` words with no
+    validation (kernel A in its pack-only mode): every byte packs as
+    (c >> 1) & 3, so zero padding packs to code 0, the reference's
+    zero-filled tail.  A CUDA tensor launches the kernel; a CPU tensor
+    takes the plain version."""
+    _check_pack_input(x)
+    if x.device.type == "cpu":
+        return pack_words_plain(x)
+    _check_lanes_operand(x)
+    n, w4 = x.shape
+    words = torch.empty((n, w4 // 4), dtype=torch.int32, device=x.device)
+    _build.launch("ssq_pack_validate", x.data_ptr(), None, words.data_ptr(),
+                  None, n, w4 // 4, 0)
+    pack_words_u32.launches += 1
+    return words
+
+
+pack_words_u32.launches = 0
+
+
+def pack_words(ascii_u8: torch.Tensor) -> torch.Tensor:
+    """`[N, L]` uint8 ASCII (L % 16 == 0, zero padded) -> `[N, L / 16]`
+    words, through pack_words_u32."""
+    return pack_words_u32(_u8_to_u32(ascii_u8))
+
+
+def pack_rows(mat_u32: np.ndarray, device) -> torch.Tensor:
+    """Host entry for construction without validation: numpy `[N, W4]`
+    uint32 view -> `[N, W4 / 4]` words on `device` (no row folding)."""
+    x = from_numpy_u32(mat_u32).to(torch.device(device))
+    return pack_words_u32(x)
 
 
 def pack_and_validate_u32(x: torch.Tensor, lengths: torch.Tensor,
                           pad_valid: bool = False):
     """Fused pack + validity mask (kernel A).  A CUDA tensor launches the
     kernel; a CPU tensor takes the plain version."""
-    if x.dim() != 2 or x.shape[1] % 4:
-        raise ValueError(
-            f"pack input must be [N, W4] lanes with W4 a multiple of 4, "
-            f"got {tuple(x.shape)} (pad the byte matrix to a multiple of "
-            "16 columns)")
+    _check_pack_input(x)
     if x.device.type == "cpu":
         return pack_and_validate_plain(x, lengths, pad_valid)
-    _build.check_operand(x, "x", torch.int32, 2, x.device)
+    _check_lanes_operand(x)
     _build.check_operand(lengths, "lengths", torch.int32, 1, x.device)
     n, w4 = x.shape
     if lengths.shape[0] != n:
         raise ValueError(f"lengths has {lengths.shape[0]} rows, x has {n}")
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned for vector loads")
     words = torch.empty((n, w4 // 4), dtype=torch.int32, device=x.device)
     ok = torch.empty(n, dtype=torch.bool, device=x.device)
     _build.launch("ssq_pack_validate", x.data_ptr(), lengths.data_ptr(),
@@ -102,3 +170,79 @@ def pack_and_validate_rows(mat_u32: np.ndarray, lengths: np.ndarray,
     x = from_numpy_u32(mat_u32).to(device)
     lens = torch.from_numpy(np.ascontiguousarray(lengths, np.int32)).to(device)
     return pack_and_validate_u32(x, lens, pad_valid=pad_valid)
+
+
+def pack_and_validate(ascii_u8: torch.Tensor, lengths: torch.Tensor):
+    """Fused pack + validity mask from a `[N, L]` uint8 matrix (kernel A,
+    length-masked)."""
+    return pack_and_validate_u32(_u8_to_u32(ascii_u8), lengths)
+
+
+def validate_u32(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-row validity: True iff every byte before the row's length passes
+    the reference bloom filter (kernel A's ok, length-masked)."""
+    return pack_and_validate_u32(x, lengths)[1]
+
+
+def validate(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """u8-matrix form of validate_u32."""
+    return validate_u32(_u8_to_u32(ascii_u8), lengths)
+
+
+def first_bad_byte_u32(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Per-row index (int32) of the first bloom-failing byte before the
+    row's length, or 4 * W4 if there is none.  Torch ops on any device: no
+    path of the package reaches it (it exists for the reference's
+    per-character error message)."""
+    n, w4 = x.shape
+    big = 4 * w4
+    lane = torch.arange(w4, dtype=torch.int32, device=x.device)
+    lengths = lengths.to(device=x.device, dtype=torch.int32)[:, None]
+    pass_lo = torch.tensor(_BLOOM_PASS_LO, dtype=torch.int32, device=x.device)
+    first = torch.full((n,), big, dtype=torch.int32, device=x.device)
+    for k in range(4):
+        c = (x >> (8 * k)) & 0xFF
+        ok = (((pass_lo >> (c & 31)) & 1) == 1) & ((c & 32) == 0)
+        pos = 4 * lane + k
+        bad = ~ok & (pos[None, :] < lengths)
+        first = torch.minimum(
+            first, torch.where(bad, pos, big).min(dim=1).values)
+    return first
+
+
+def first_bad_byte(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """u8-matrix form of first_bad_byte_u32."""
+    return first_bad_byte_u32(_u8_to_u32(ascii_u8), lengths)
+
+
+def unpack_ascii_plain(words: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel E (any device)."""
+    n, w = words.shape
+    shifts = torch.arange(0, 32, 2, dtype=torch.int32, device=words.device)
+    codes = (words[:, :, None] >> shifts) & 3
+    table = torch.tensor(_CHARMAP_BYTES, dtype=torch.uint8,
+                         device=words.device)
+    return table[codes.long()].reshape(n, 16 * w)
+
+
+def unpack_ascii(words: torch.Tensor, out_len: int | None = None):
+    """Inverse of pack_words: `[N, W]` words -> `[N, 16 W]` uint8 ASCII
+    (kernel E), the first `out_len` columns when given.  Codes decode
+    through the reference charmap A, C, T, G; bases past a row's length
+    decode to 'A' and are the caller's to slice off.  A CUDA tensor
+    launches the kernel; a CPU tensor takes the plain version."""
+    if words.dim() != 2:
+        raise ValueError(f"words must be [N, W], got {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        out = unpack_ascii_plain(words)
+    else:
+        _build.check_operand(words, "words", torch.int32, 2, words.device)
+        n, w = words.shape
+        out = torch.empty((n, 16 * w), dtype=torch.uint8, device=words.device)
+        _build.launch("ssq_unpack_ascii", words.data_ptr(), out.data_ptr(),
+                      n * w)
+        unpack_ascii.launches += 1
+    return out if out_len is None else out[:, :out_len]
+
+
+unpack_ascii.launches = 0

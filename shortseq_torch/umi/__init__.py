@@ -1,5 +1,11 @@
-"""UMI deduplication on the card (or on the CPU with device="cpu")."""
+"""UMI handling on the card (or on the CPU with device="cpu"): the object
+layer (`UMI`, `UMI5p`, `UMI3p`, `UMIboth`, `UMIFactory`), deduplication
+(`dedup_umis`, `dedup_reads`) and the dense `umi_adjacency`."""
 
-from .dedup import dedup_reads, dedup_umis, split_read
+from .dedup import dedup_reads, dedup_umis, split_read, umi_adjacency
+from .objects import UMI, UMI3p, UMI5p, UMIboth, UMIFactory
 
-__all__ = ["dedup_reads", "dedup_umis", "split_read"]
+__all__ = [
+    "UMI", "UMI5p", "UMI3p", "UMIboth", "UMIFactory",
+    "dedup_reads", "dedup_umis", "split_read", "umi_adjacency",
+]

@@ -133,6 +133,18 @@ def _unique_rows(mat):
     return np.ascontiguousarray(uniq_mat), counts[order], rank[inv]
 
 
+def umi_adjacency(words, lengths, threshold: int = 1) -> np.ndarray:
+    """[U, W] packed UMIs (a tensor on its device, or a numpy uint32
+    array, which goes to the CPU) -> boolean [U, U] adjacency on the host:
+    hamming <= threshold and equal length.  Dense, through the calibrated
+    pairwise selector; the dedup paths use _neighbor_lists instead."""
+    from ..ops.pairwise import pairwise_hamming_auto
+
+    dist = pairwise_hamming_auto(words, words).cpu().numpy()
+    lengths = np.asarray(lengths)
+    return (dist <= threshold) & np.equal.outer(lengths, lengths)
+
+
 # --- Kernel C: neighbour extraction -----------------------------------------
 
 

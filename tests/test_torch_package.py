@@ -36,6 +36,8 @@ def test_imports_with_jax_blocked():
         "import shortseq_torch.api.seq, shortseq_torch.oracle\n"
         "import shortseq_torch.count, shortseq_torch.count.checkpoint\n"
         "import shortseq_torch.count.ingest, shortseq_torch.utils\n"
+        "import shortseq_torch.batch, shortseq_torch.umi.objects\n"
+        "import shortseq_torch.ops.pairwise, shortseq_torch.ops.hamming\n"
         "from shortseq_torch import _build\n"
         "from shortseq_torch.io import native\n"
         "assert _build._cuda is None and not native._bound\n"
@@ -108,13 +110,23 @@ def test_kernel_wrappers_count_no_cpu_launches():
                                     pack_and_validate_u32)
     from shortseq_torch.umi.dedup import dedup_umis, neighbor_extract
 
+    from shortseq_torch import PackedBatch, pack_batch
+    from shortseq_torch.batch import trim_words_ragged
+    from shortseq_torch.ops import hamming_rows, pack_words_u32, unpack_ascii
+
     wrappers = (pack_and_validate_u32, hamming_pairwise_tiled,
-                neighbor_extract, group_count)
+                neighbor_extract, group_count, pack_words_u32, unpack_ascii,
+                trim_words_ragged, hamming_rows)
     before = [w.launches for w in wrappers]
     dedup_umis([b"AAAA", b"AAAT", b"GGGG"], device="cpu")
     counts = count_matrix_device(np.full((3, 16), 65, np.uint8),
                                  np.array([4, 4, 2], np.int32), device="cpu")
     assert sorted(counts.values()) == [1, 2]
+    b = pack_batch(["ACGT", "GGA"], device="cpu")
+    m = PackedBatch.from_matrix(np.full((2, 16), 65, np.uint8), [3, 4],
+                                device="cpu")
+    assert b.trim(1, 2).decode() == ["CG", "GA"]
+    assert b.trim_ragged([0, 1], 2).hamming(m.trim(0, 2)).tolist() == [1, 1]
     assert [w.launches for w in wrappers] == before
 
 

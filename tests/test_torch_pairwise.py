@@ -1,16 +1,34 @@
 """shortseq_torch all-pairs hamming (kernel B's plain version on the CPU,
 the kernel itself on a card) against the JAX package's Pallas kernel, run
 in interpret mode as tests/test_pallas_kernels.py runs it, and against its
-broadcast hamming_pairwise.  Exact comparisons (integer outputs)."""
+broadcast hamming_pairwise; then the calibrated selector
+(calibrate_pairwise, pairwise_hamming_auto), as tests/test_pallas_kernels.py
+covers the JAX one.  Exact comparisons (integer outputs).  The calibration
+cache goes to a temporary directory, never to the home directory."""
+
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from shortseq_torch.ops import hamming_pairwise_tiled, pairwise_hamming
+from shortseq_torch.ops import (hamming_pairwise, hamming_pairwise_tiled,
+                                pairwise_hamming_auto)
+from shortseq_torch.ops import pairwise as tp
 from shortseq_torch.ops.lanes import from_numpy_u32
 from shortseq_tpu.ops import hamming_pairwise as jax_hamming_pairwise
 from shortseq_tpu.ops import hamming_pairwise_tiled as jax_tiled
+from tests.conftest import rand_sequence
+
+
+@pytest.fixture(autouse=True)
+def calib_cache(tmp_path, monkeypatch):
+    """A private, empty calibration cache for every test."""
+    path = str(tmp_path / "calib.json")
+    monkeypatch.setattr(tp, "_calib_file", lambda: path)
+    monkeypatch.setattr(tp, "_CALIBRATION", {})
+    monkeypatch.delenv("SHORTSEQ_TORCH_PAIRWISE", raising=False)
+    return path
 
 
 @pytest.fixture
@@ -39,9 +57,10 @@ def _umi_like(n, w, seed):
 
 @pytest.mark.parametrize("n,m,w", [(130, 70, 2), (200, 150, 6),
                                    (70, 130, 64)])
-def test_plain_matches_pallas_interpret(n, m, w):
+def test_plain_matches_pallas_interpret(n, m, w, monkeypatch):
+    monkeypatch.setenv("SHORTSEQ_TORCH_PAIRWISE", "plain")
     a, b = _rand_words(n, w, 1), _umi_like(m, w, 2)
-    got = pairwise_hamming(a, b).numpy()
+    got = pairwise_hamming_auto(a, b).numpy()
     want = np.asarray(jax_tiled(a, b, interpret=True))
     np.testing.assert_array_equal(got, want)
 
@@ -84,5 +103,93 @@ def test_kernel_matches_plain_on_card(cuda, n, m, w):
     before = hamming_pairwise_tiled.launches
     got = hamming_pairwise_tiled(a, b)
     assert hamming_pairwise_tiled.launches == before + 1
-    want = pairwise_hamming(a.cpu(), b.cpu())
+    want = hamming_pairwise(a.cpu(), b.cpu())
     assert torch.equal(got.cpu(), want)
+
+
+# --- calibration and the selector ------------------------------------------
+
+
+def test_calibration_measures_and_caches(calib_cache):
+    times = tp.calibrate_pairwise(2, "cpu", force=True)
+    assert set(times) == {"plain", "onehot"}
+    assert all(t > 0 for t in times.values())
+    winner = min(times, key=times.get)
+    assert tp._CALIBRATION["cpu/w2"] == winner
+    with open(calib_cache) as f:
+        assert json.load(f)["cpu/w2"] == {"winner": winner, "times": times}
+    # In memory: nothing to measure.  Fresh memory: the disk answers.
+    assert tp.calibrate_pairwise(2, "cpu") is None
+    tp._CALIBRATION.clear()
+    assert tp.calibrate_pairwise(2, "cpu") == times
+    assert tp._CALIBRATION["cpu/w2"] == winner
+
+
+def test_calibration_keeps_other_widths_and_skips_bad_entries(calib_cache):
+    with open(calib_cache, "w") as f:
+        json.dump({"cpu/w1": {"winner": "tiled", "times": {}},
+                   "cuda/X/w1": {"winner": "onehot", "times": {"a": 1}}}, f)
+    # "tiled" is no CPU candidate: the entry is measured again.
+    times = tp.calibrate_pairwise(1, "cpu")
+    assert set(times) == {"plain", "onehot"}
+    with open(calib_cache) as f:
+        disk = json.load(f)
+    assert disk["cuda/X/w1"]["winner"] == "onehot"
+    assert disk["cpu/w1"]["winner"] in ("plain", "onehot")
+
+
+def test_auto_calibrates_once_and_counts_its_path():
+    a = from_numpy_u32(_umi_like(50, 2, 11))
+    before = dict(pairwise_hamming_auto.paths)
+    got = pairwise_hamming_auto(a, a)
+    winner = tp._CALIBRATION["cpu/w2"]
+    assert winner in ("plain", "onehot")
+    pairwise_hamming_auto(a, a)
+    assert pairwise_hamming_auto.paths[winner] == before[winner] + 2
+    assert torch.equal(got, hamming_pairwise(a, a))
+
+
+@pytest.mark.parametrize("mode", ["plain", "onehot", "tiled"])
+def test_env_override(monkeypatch, mode):
+    a, b = _rand_words(64, 2, 12), _rand_words(48, 2, 13)
+    want = np.asarray(jax_hamming_pairwise(a, b))
+    monkeypatch.setenv("SHORTSEQ_TORCH_PAIRWISE", mode)
+    before = pairwise_hamming_auto.paths[mode]
+    np.testing.assert_array_equal(pairwise_hamming_auto(a, b).numpy(), want)
+    assert pairwise_hamming_auto.paths[mode] == before + 1
+    assert tp._CALIBRATION == {}
+
+
+def test_env_override_rejects_unknown(monkeypatch):
+    monkeypatch.setenv("SHORTSEQ_TORCH_PAIRWISE", "mxu")
+    with pytest.raises(ValueError, match="SHORTSEQ_TORCH_PAIRWISE"):
+        pairwise_hamming_auto(_rand_words(2, 2, 0), _rand_words(2, 2, 1))
+
+
+def test_auto_matches_oracle(rng):
+    from shortseq_torch.ops.bitpack import pack_words
+
+    seqs = [rand_sequence(rng, 32) for _ in range(40)]
+    mat = np.frombuffer("".join(seqs).encode(), np.uint8).reshape(40, 32)
+    words = pack_words(torch.from_numpy(mat.copy()))
+    dist = pairwise_hamming_auto(words, words).numpy()
+    for i in range(0, len(seqs), 7):
+        for j in range(0, len(seqs), 5):
+            assert dist[i, j] == sum(x != y for x, y in zip(seqs[i], seqs[j]))
+
+
+def test_plain_on_card_raises(cuda, monkeypatch):
+    monkeypatch.setenv("SHORTSEQ_TORCH_PAIRWISE", "plain")
+    a = from_numpy_u32(_rand_words(4, 2, 0)).to(cuda)
+    with pytest.raises(ValueError, match="plain"):
+        pairwise_hamming_auto(a, a)
+
+
+def test_calibration_on_card_never_picks_plain(cuda):
+    times = tp.calibrate_pairwise(10, cuda, force=True)
+    assert set(times) == {"tiled", "onehot"}
+    key = f"cuda/{torch.cuda.get_device_name(cuda)}/w10"
+    assert tp._CALIBRATION[key] == min(times, key=times.get)
+    a = from_numpy_u32(_umi_like(300, 10, 14)).to(cuda)
+    got = pairwise_hamming_auto(a, a)
+    assert torch.equal(got, hamming_pairwise_tiled(a, a))
