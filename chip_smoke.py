@@ -5,13 +5,24 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A to G (nvcc, sm_90a, one process per source),
+  build      kernels A to H (nvcc, sm_90a, one process per source),
              the host library and the object extension (g++) from this
              checkout's sources, all started together, with the seconds
              each took, and the object backend
   kernels    each kernel against its plain PyTorch version on the card at
              the slices' shapes (integers: exact equality), with median
-             CUDA-event times over 7 runs, L2 flushed before each run;
+             CUDA-event times over 7 runs (3 for the largest), L2 flushed
+             before each run, each beside its bound (bytes at 3.35 TB/s or
+             popcounts at 4.18e12/s, whichever is longer), and the card's
+             SM clock and power draw sampled throughout; B at
+             [2688] x [102144] W = 2, [4096] x [131072] W = 10 and
+             [512] x [16384] W = 6 and 64, each also against the one-hot
+             product; C on B's band slab at k = 16 and 128; H on the band
+             at k = 16 and 128 (also against B + C) and at the main path's
+             [100000] x [102144] (also against B + C over 38 bands); for
+             B, C and H also each launch's device time (torch.profiler),
+             which leaves out the wrapper's host time that the CUDA
+             events include;
              for D also its edge cases (tile edges from
              GROUP_TILE_ROWS, poison, int32 wraps, small n_out, PAD
              rows, N = 1, W = 1 and 5), a one-key shape, each of its
@@ -22,9 +33,13 @@ Phases, one line each; any failure raises and exits nonzero:
              pairwise product against B at [512] x [16384], W = 1, 2, 10,
              64
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
-             threshold 1): a valid partition, a 512-row slab of neighbour
-             lists against the plain pairwise check, and a 5,000-unique
-             problem identical to device="cpu"
+             threshold 1): a valid partition, the neighbour lists' wall
+             and the host's split of them timed alone, a 512-row slab of
+             neighbour lists against the plain pairwise check, a
+             5,000-unique problem identical to device="cpu", and 8,200
+             UMIs (7,400 unique) in error fans at threshold 2 (rows over
+             the main pass's cap, so the overflow tier runs B + C)
+             identical to device="cpu"
   umi_cli    1,000,000 reads (100,000 molecules, 8-nt UMI, 20-nt insert,
              2% UMI errors) through `python -m shortseq_torch umi` as a
              subprocess, and through dedup_reads in this process: molecule
@@ -53,11 +68,12 @@ Phases, one line each; any failure raises and exits nonzero:
              200,000 strings equal to from_matrix, and its invalid-base
              error; to_objects() on 100,000 rows equal to pack(str);
              umi_adjacency on 8,192 12-nt UMIs against the plain pairwise
-  counters   kernels A to G all launched while phases umi_scale, umi_cli,
+  counters   kernels A to H all launched while phases umi_scale, umi_cli,
              count and batch drove the main path (counts reset just
-             before each run), D during count, A in count_matrix_device,
-             A's pack-only mode, E, F and G in batch, and the pairwise
-             choice in batch;
+             before each run), H in umi_scale and umi_cli, B + C in
+             umi_scale's overflow tier, D during count, A in
+             count_matrix_device, A's pack-only mode, E, F and G in batch,
+             and the pairwise choice in batch;
              the native host library loaded, the UMI matrix paths and the
              count path's device engine, 4-chunk transfer and streamed
              slices all taken
@@ -81,6 +97,14 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = "shortseq_torch/csrc/kernels.cu"
 SOURCE_D = "shortseq_torch/csrc/count.cu"
 SOURCE_BATCH = "shortseq_torch/csrc/batch.cu"
+SOURCE_UMI = "shortseq_torch/csrc/umi.cu"
+
+# The least time a kernel could take (bound_ms): the larger of its bytes
+# (each input read once, each output written once) at the H100 SXM's HBM
+# rate and its popcounts at __popc's rate (16 per SM per clock, 132 SMs at
+# 1.98 GHz).
+HBM_BYTES_PER_S = 3.35e12
+POPC_PER_S = 132 * 16 * 1.98e9
 
 
 def phase(name, fn, *args):
@@ -106,6 +130,26 @@ def rand_umis(u, length, seed=0):
     alphabet = np.frombuffer(b"ACGT", np.uint8)
     mat = alphabet[rng.integers(0, 4, size=(u, length))]
     return [mat[i].tobytes() for i in range(u)]
+
+
+def fan_umis(n_base, length, seed, reps=5):
+    """Error fans: n_base random UMIs, each `reps` times, then every one of
+    its 3 * length single-substitution variants once.  At threshold 2 a
+    fan's rows are each other's neighbours (~3 * length of them)."""
+    import numpy as np
+
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for b in np.frombuffer(b"".join(rand_umis(n_base, length, seed)),
+                           np.uint8).reshape(n_base, length):
+        out.extend([b.tobytes()] * reps)
+        for pos in range(length):
+            for c in alpha:
+                if c != b[pos]:
+                    v = b.copy()
+                    v[pos] = c
+                    out.append(v.tobytes())
+    return out
 
 
 def make_reads(n, n_mol, umi_len=8, insert_len=20, err=0.02, seed=0):
@@ -216,6 +260,56 @@ def exact(name, got, want):
                for g, w in zip(got, want) if g.numel())
 
 
+def bound(inputs, outputs, popc=0):
+    """(bound_ms, bound_by) of one call: its bytes at HBM_BYTES_PER_S
+    against its popcounts at POPC_PER_S, whichever takes longer."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = popc / POPC_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_text(b):
+    return f"bound {b[0]:.4f} ms ({b[1]})"
+
+
+class SmiSampler:
+    """The card's SM clock and power draw, sampled by nvidia-smi every
+    100 ms in the background while the `with` block runs."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        for line in out.splitlines():
+            try:
+                mhz, watts = (float(x) for x in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((mhz, watts))
+        return False
+
+    def summary(self):
+        if not self.samples:
+            return "clocks.sm and power.draw: not sampled"
+        mhz, watts = zip(*self.samples)
+        return (f"clocks.sm {min(mhz):.0f}-{max(mhz):.0f} MHz (median "
+                f"{statistics.median(mhz):.0f}), power.draw {min(watts):.1f}-"
+                f"{max(watts):.1f} W (median {statistics.median(watts):.1f}) "
+                f"over {len(mhz)} samples")
+
+
 # --- phases -----------------------------------------------------------------
 
 
@@ -261,6 +355,18 @@ def phase_build():
 
 
 def phase_kernels(torch, results):
+    """Every kernel against its plain version, timed, with the card's SM
+    clock and power draw sampled throughout."""
+    lines = []
+    with SmiSampler() as smi:
+        kernel_checks(torch, results, lines)
+    for line in lines:
+        print("  " + line, flush=True)
+    print("  during the kernel timings: " + smi.summary(), flush=True)
+    return "all kernels equal their plain versions"
+
+
+def kernel_checks(torch, results, lines):
     import numpy as np
 
     from shortseq_torch.ops import bitpack, hamming, pairwise
@@ -269,7 +375,6 @@ def phase_kernels(torch, results):
 
     timer = Timer(torch)
     rng = np.random.default_rng(0)
-    lines = []
 
     # A: pack + validate.  1% of bytes invalid, random lengths.
     alpha = np.frombuffer(b"ACGT", np.uint8)
@@ -282,24 +387,31 @@ def phase_kernels(torch, results):
         x = from_numpy_u32(mat.view(np.uint32)).cuda()
         ln = torch.from_numpy(lens).cuda()
         for pad_valid in (False, True):
+            want = bitpack.pack_and_validate_plain(x, ln, pad_valid)
             errs.append(exact(
                 f"A [{n},{w4}] pad_valid={pad_valid}",
-                bitpack.pack_and_validate_u32(x, ln, pad_valid),
-                bitpack.pack_and_validate_plain(x, ln, pad_valid)))
+                bitpack.pack_and_validate_u32(x, ln, pad_valid), want))
             ms, plain_ms = timer([
                 lambda: bitpack.pack_and_validate_u32(x, ln, pad_valid),
                 lambda: bitpack.pack_and_validate_plain(x, ln, pad_valid)])
+            bnd = bound([x, ln], want)
             lines.append(f"A [{n},{w4}] pad_valid={pad_valid}: "
-                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                         + bound_text(bnd))
             if a_main is None:
-                a_main = (ms, plain_ms)
+                a_main = (ms, plain_ms, bnd)
     results["pack_validate"] = dict(
         replaces="shortseq_tpu/ops/bitpack.py:330",
-        max_abs_err=max(errs), ms=a_main[0], plain_ms=a_main[1])
+        max_abs_err=max(errs), ms=a_main[0], plain_ms=a_main[1],
+        bound_ms=a_main[2][0], bound_by=a_main[2][1], library_ms=None)
 
-    # B: all-pairs hamming.  The slice's shape first: a 2688-row block of
-    # 12-nt UMIs against all 102144 padded rows.  Two random groups and
-    # threshold 3 give rows ~20 neighbours, so C's k=16 cap truncates.
+    # B: all-pairs hamming at its callers' shapes, each against plain and
+    # against the one-hot float16 product, its yardstick (library_ms):
+    # a 2688-row band of 12-nt UMIs against all 102144 padded rows (W = 2;
+    # the UMI main pass before kernel H, and H's band below);
+    # PackedBatch.pairwise's 4096-row block against 131072 rows of 150 nt
+    # (W = 10; plain in 256-row chunks, whose broadcast would need 21 GB);
+    # the calibration shape [512] x [16384] at W = 6 and 64.
     u_pad, block, lo = 102144, 2688, 2688 * 7
     umis = np.frombuffer(b"".join(rand_umis(u_pad, 12, seed=2)),
                          np.uint8).reshape(u_pad, 12)
@@ -311,38 +423,54 @@ def phase_kernels(torch, results):
     assert bool(ok.all())
     lens_d = torch.from_numpy(lens).cuda()
     lens_d[-500:] = -1                       # pad rows, as the slice pads
+    # Two random groups and threshold 3 give rows ~20 neighbours, so the
+    # k = 16 cap truncates.
     gids_d = torch.from_numpy(
         rng.integers(0, 2, size=u_pad).astype(np.int32)).cuda()
     rows_d = torch.arange(u_pad, dtype=torch.int32, device="cuda")
     a = words[lo:lo + block]
     slab = torch.empty((block, u_pad), dtype=torch.int32, device="cuda")
-    errs = [exact("B [2688]x[102144] W=2",
-                  [pairwise.hamming_pairwise_tiled(a, words, out=slab)],
-                  [hamming.hamming_pairwise(a, words)])]
-    b_main = timer([lambda: pairwise.hamming_pairwise_tiled(a, words,
-                                                            out=slab),
-                    lambda: hamming.hamming_pairwise(a, words)])
-    lines.append(f"B [2688]x[102144] W=2: {b_main[0]:.4f} ms, "
-                 f"plain {b_main[1]:.4f} ms")
+
+    def rand_lanes(n, w):
+        return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, w),
+                                             dtype=np.int64)
+                                .astype(np.int32)).cuda()
+
+    def b_case(name, a, b, out=None, chunk=None, runs=7):
+        def kernel():
+            return pairwise.hamming_pairwise_tiled(a, b, out=out)
+
+        def plain():
+            if chunk is None:
+                return hamming.hamming_pairwise(a, b)
+            return torch.cat([hamming.hamming_pairwise(a[i:i + chunk], b)
+                              for i in range(0, len(a), chunk)])
+
+        got = kernel()
+        err = exact(f"B {name}", [got], [plain()])
+        t = timer([kernel, plain,
+                   lambda: hamming.hamming_pairwise_onehot(a, b)], runs)
+        n, w = a.shape
+        bnd = bound([a, b], [got], popc=n * len(b) * -(-w // 2))
+        split = launch_split(torch, kernel, ("pairwise",))
+        lines.append(f"B {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
+                     f"one-hot {t[2]:.4f} ms; {bound_text(bnd)}; {split}")
+        return err, t, bnd
+
+    errs = [b_case("[2688]x[102144] W=2", a, words, out=slab)[0]]
     for w in (6, 64):
-        aw = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, w),
-                                           dtype=np.int64)
-                              .astype(np.int32)).cuda()
-        bw = torch.from_numpy(rng.integers(-2**31, 2**31, size=(16384, w),
-                                           dtype=np.int64)
-                              .astype(np.int32)).cuda()
-        errs.append(exact(f"B [512]x[16384] W={w}",
-                          [pairwise.hamming_pairwise_tiled(aw, bw)],
-                          [hamming.hamming_pairwise(aw, bw)]))
-        ms, plain_ms = timer([lambda: pairwise.hamming_pairwise_tiled(aw, bw),
-                              lambda: hamming.hamming_pairwise(aw, bw)])
-        lines.append(f"B [512]x[16384] W={w}: {ms:.4f} ms, "
-                     f"plain {plain_ms:.4f} ms")
+        errs.append(b_case(f"[512]x[16384] W={w}", rand_lanes(512, w),
+                           rand_lanes(16384, w))[0])
+    aw, bw = rand_lanes(4096, 10), rand_lanes(131072, 10)
+    err, t, bnd = b_case("[4096]x[131072] W=10", aw, bw, chunk=256, runs=3)
+    del aw, bw
+    torch.cuda.empty_cache()
     results["pairwise_hamming"] = dict(
         replaces="shortseq_tpu/ops/pallas_kernels.py:75",
-        max_abs_err=max(errs), ms=b_main[0], plain_ms=b_main[1])
+        max_abs_err=max(errs + [err]), ms=t[0], plain_ms=t[1],
+        bound_ms=bnd[0], bound_by=bnd[1], library_ms=t[2])
 
-    # C: neighbour extraction on B's slab.
+    # C: neighbour extraction on B's slab of the band.
     pairwise.hamming_pairwise_tiled(a, words, out=slab)
     sl = slice(lo, lo + block)
     args = (slab, lens_d[sl], gids_d[sl], rows_d[sl], lens_d, gids_d, 3)
@@ -354,19 +482,80 @@ def phase_kernels(torch, results):
         over = int((want[1] > k).sum())
         ms, plain_ms = timer([lambda: dedup.neighbor_extract(*args, k),
                               lambda: dedup.neighbor_extract_plain(*args, k)])
+        bnd = bound(args[:6], want)
+        split = launch_split(torch, lambda: dedup.neighbor_extract(*args, k),
+                             ("neighbor_extract",))
         lines.append(f"C [2688,102144] k={k} ({over} rows over k): "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                     f"{bound_text(bnd)}; {split}")
         if c_main is None:
-            c_main = (ms, plain_ms)
+            c_main = (ms, plain_ms, bnd)
     results["neighbor_extract"] = dict(
         replaces="shortseq_tpu/umi/dedup.py:180",
-        max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1])
+        max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1],
+        bound_ms=c_main[2][0], bound_by=c_main[2][1], library_ms=None)
+
+    # H: fused neighbour lists.  The band at k = 16 and 128, against its
+    # plain version and against B + C on the same band; then the main
+    # path's shape (dedup_umis on 100000 unique 12-nt UMIs: every real row
+    # against all 102144 columns, threshold 1, k = 16) against plain and
+    # against B + C over the 38 bands, the main pass that H replaced.
+    def b_then_c(rows, threshold, k):
+        parts = []
+        for s in range(0, rows, block):
+            e = min(s + block, rows)
+            pairwise.hamming_pairwise_tiled(words[s:e], words,
+                                            out=slab[:e - s])
+            parts.append(dedup.neighbor_extract(
+                slab[:e - s], lens_d[s:e], gids_d[s:e], rows_d[s:e],
+                lens_d, gids_d, threshold, k))
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in
+                                                            parts])
+
+    errs = []
+    for k in (16, 128):
+        hargs = (a, lens_d[sl], gids_d[sl], rows_d[sl], words, lens_d,
+                 gids_d, 3, k)
+        want = dedup.neighbor_lists_fused_plain(*hargs)
+        errs.append(exact(f"H band k={k}",
+                          dedup.neighbor_lists_fused(*hargs), want))
+        t = timer([lambda: dedup.neighbor_lists_fused(*hargs),
+                   lambda: dedup.neighbor_lists_fused_plain(*hargs),
+                   lambda: dedup.neighbor_extract(
+                       pairwise.hamming_pairwise_tiled(a, words, out=slab),
+                       *args[1:], k)])
+        bnd = bound(hargs[:7], want, popc=block * u_pad)
+        split = launch_split(torch,
+                             lambda: dedup.neighbor_lists_fused(*hargs),
+                             ("neighbor_lists", "neighbor_merge"))
+        lines.append(f"H band [2688]x[102144] k={k}: {t[0]:.4f} ms, plain "
+                     f"{t[1]:.4f} ms, B + C {t[2]:.4f} ms; "
+                     f"{bound_text(bnd)}; {split}")
+    real = 100_000
+    hall = (words[:real], lens_d[:real], gids_d[:real], rows_d[:real],
+            words, lens_d, gids_d, 1, 16)
+    got = dedup.neighbor_lists_fused(*hall)
+    errs.append(exact("H [100000]x[102144]", got,
+                      dedup.neighbor_lists_fused_plain(*hall)))
+    exact("H [100000]x[102144] against B + C", got,
+          [x[:real] for x in b_then_c(u_pad, 1, 16)])
+    t = timer([lambda: dedup.neighbor_lists_fused(*hall),
+               lambda: dedup.neighbor_lists_fused_plain(*hall),
+               lambda: b_then_c(u_pad, 1, 16)], runs=3)
+    split = launch_split(torch, lambda: dedup.neighbor_lists_fused(*hall),
+                         ("neighbor_lists", "neighbor_merge"))
+    bnd = bound(hall[:7], got, popc=real * u_pad)
+    lines.append(f"H [100000]x[102144] k=16 (the main path's shape): "
+                 f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, B + C over 38 bands "
+                 f"{t[2]:.4f} ms; {bound_text(bnd)}; {split}")
+    results["neighbor_lists_fused"] = dict(
+        source=SOURCE_UMI, replaces="shortseq_tpu/umi/dedup.py:180",
+        max_abs_err=max(errs), ms=t[0], plain_ms=t[1], bound_ms=bnd[0],
+        bound_by=bnd[1], library_ms=None)
+    del slab
 
     results["unique_count"] = kernel_d(torch, timer, rng, lines)
     results.update(batch_kernels(torch, timer, rng, lines))
-    for line in lines:
-        print("  " + line, flush=True)
-    return "all kernels equal their plain versions"
 
 
 def d_edge_cases(tile):
@@ -439,10 +628,11 @@ def d_edge_cases(tile):
     return cases
 
 
-def d_launch_split(torch, fn, runs=3):
-    """Device ms per call of D's launches (tile, finish, and the fills of
-    its scratch), from torch.profiler; L2 is flushed before each call by
-    an add over 128 MiB, which no row below matches."""
+def launch_split(torch, fn, tags, runs=3):
+    """Device ms per call of fn's launches whose kernel names hold each
+    tag (for D: tile, finish, and the fills of its scratch; for H: the
+    lists and the merge), from torch.profiler; L2 is flushed before each
+    call by an add over 128 MiB, which no tag matches."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -458,10 +648,10 @@ def d_launch_split(torch, fn, runs=3):
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0)
-        for tag in ("group_tile", "group_finish", "fill"):
+        for tag in tags:
             if tag in e.key.lower():
                 split[tag] = split.get(tag, 0.0) + us / 1000 / runs
-    if not split.get("group_tile"):
+    if not split.get(tags[0]):
         return "launch split not measured (the profiler saw no device time)"
     return "launches: " + ", ".join(f"{k} {v:.4f} ms"
                                     for k, v in split.items())
@@ -519,22 +709,26 @@ def kernel_d(torch, timer, rng, lines):
             f"D [{n},{w}]",
             cdev.group_count(words, lengths, weights, perm, n), want))
         biggest, groups = int(want[2].max()), int(want[3])
+        bnd = bound([words, lengths, weights, perm], want)
         del want
         ms, plain_ms, sort_ms, total_ms = timer([
             lambda: cdev.group_count(words, lengths, weights, perm, n),
             lambda: cdev.group_count_plain(words, lengths, weights, perm, n),
             lambda: cdev.sort_rows(words, lengths),
             lambda: cdev.unique_count(words, lengths, weights)])
-        split = d_launch_split(
-            torch, lambda: cdev.group_count(words, lengths, weights, perm, n))
+        split = launch_split(
+            torch, lambda: cdev.group_count(words, lengths, weights, perm, n),
+            ("group_tile", "group_finish", "fill"))
         lines.append(f"D [{n},{w}] ({groups} groups, largest {biggest}): "
                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {split}; "
-                     f"sort {sort_ms:.4f} ms; unique_count {total_ms:.4f} ms")
+                     f"sort {sort_ms:.4f} ms; unique_count {total_ms:.4f} "
+                     f"ms; {bound_text(bnd)}")
         if d_main is None:
-            d_main = (ms, plain_ms)
+            d_main = (ms, plain_ms, bnd)
         del words, lengths, weights, perm
     return dict(source=SOURCE_D, replaces="shortseq_tpu/count/device.py:156",
-                max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1])
+                max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1],
+                bound_ms=d_main[2][0], bound_by=d_main[2][1], library_ms=None)
 
 
 def batch_kernels(torch, timer, rng, lines):
@@ -556,27 +750,33 @@ def batch_kernels(torch, timer, rng, lines):
     x = from_numpy_u32(mat.view(np.uint32)).cuda()
     del mat
 
-    def entry(name, source, replaces, errs, times):
+    def entry(name, source, replaces, errs, times, bnd):
         out[name] = dict(source=source, replaces=replaces,
                          max_abs_err=max(errs), ms=times[0],
-                         plain_ms=times[1])
+                         plain_ms=times[1], bound_ms=bnd[0],
+                         bound_by=bnd[1], library_ms=None)
 
-    err = exact("A pack-only [2M,40]", [bitpack.pack_words_u32(x)],
-                [bitpack.pack_words_plain(x)])
+    words = bitpack.pack_words_plain(x)
+    err = exact("A pack-only [2M,40]", [bitpack.pack_words_u32(x)], [words])
     t = timer([lambda: bitpack.pack_words_u32(x),
                lambda: bitpack.pack_words_plain(x)])
-    lines.append(f"A pack-only [2M,40]: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
-    entry("pack_words", SOURCE, "shortseq_tpu/ops/bitpack.py:116", [err], t)
+    bnd = bound([x], [words])
+    lines.append(f"A pack-only [2M,40]: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
+                 + bound_text(bnd))
+    entry("pack_words", SOURCE, "shortseq_tpu/ops/bitpack.py:116", [err], t,
+          bnd)
 
-    words = bitpack.pack_words_u32(x)
     del x
-    err = exact("E [2M,10]", [bitpack.unpack_ascii(words)],
-                [bitpack.unpack_ascii_plain(words)])
+    want = bitpack.unpack_ascii_plain(words)
+    err = exact("E [2M,10]", [bitpack.unpack_ascii(words)], [want])
     t = timer([lambda: bitpack.unpack_ascii(words),
                lambda: bitpack.unpack_ascii_plain(words)])
-    lines.append(f"E [2M,10]: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
+    bnd = bound([words], [want])
+    del want
+    lines.append(f"E [2M,10]: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
+                 + bound_text(bnd))
     entry("unpack_ascii", SOURCE_BATCH, "shortseq_tpu/ops/bitpack.py:148",
-          [err], t)
+          [err], t, bnd)
 
     lens = torch.full((n,), 150, dtype=torch.int32, device="cuda")
     starts = torch.from_numpy(
@@ -585,8 +785,10 @@ def batch_kernels(torch, timer, rng, lines):
         rng.integers(60, 151, size=n).astype(np.int32)).cuda()
     static = (words, lens, 8, 100, 7)
     ragged = (words, lens, starts, keep, 10)
+    want = batch.trim_words_plain(*static)
+    bnd = bound(static[:2], want)
     errs = [exact("F static (8, 100) [2M,10]", batch.trim_words(*static),
-                  batch.trim_words_plain(*static)),
+                  want),
             exact("F ragged [2M,10]", batch.trim_words_ragged(*ragged),
                   batch.trim_words_ragged_plain(*ragged))]
     t_static = timer([lambda: batch.trim_words(*static),
@@ -595,9 +797,10 @@ def batch_kernels(torch, timer, rng, lines):
                       lambda: batch.trim_words_ragged_plain(*ragged)])
     lines.append(f"F static (8, 100) [2M,10]: {t_static[0]:.4f} ms, plain "
                  f"{t_static[1]:.4f} ms; ragged (starts 0-40, lengths "
-                 f"60-150): {t_ragged[0]:.4f} ms, plain {t_ragged[1]:.4f} ms")
+                 f"60-150): {t_ragged[0]:.4f} ms, plain {t_ragged[1]:.4f} ms;"
+                 f" static {bound_text(bnd)}")
     entry("trim_words", SOURCE_BATCH, "shortseq_tpu/batch.py:56", errs,
-          t_static)
+          t_static, bnd)
 
     errs, g_main = [], None
     other = words.roll(1, 0)
@@ -606,14 +809,16 @@ def batch_kernels(torch, timer, rng, lines):
                              .astype(np.int32)).cuda() for _ in range(2)]
     for name, a, b in (("[2M,10]", words, other),
                        ("[262144,64]", wide[0], wide[1])):
-        errs.append(exact(f"G {name}", [hamming.hamming_rows(a, b)],
-                          [hamming.hamming_rows_plain(a, b)]))
+        want = hamming.hamming_rows_plain(a, b)
+        errs.append(exact(f"G {name}", [hamming.hamming_rows(a, b)], [want]))
         t = timer([lambda: hamming.hamming_rows(a, b),
                    lambda: hamming.hamming_rows_plain(a, b)])
-        lines.append(f"G {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms")
-        g_main = g_main or t
+        bnd = bound([a, b], [want], popc=a.shape[0] * -(-a.shape[1] // 2))
+        lines.append(f"G {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
+                     + bound_text(bnd))
+        g_main = g_main or (t, bnd)
     entry("hamming_rows", SOURCE_BATCH, "shortseq_tpu/ops/hamming.py:26",
-          errs, g_main)
+          errs, *g_main)
     del words, other, wide, lens, starts, keep
 
     for w in (1, 2, 10, 64):
@@ -634,7 +839,7 @@ def batch_kernels(torch, timer, rng, lines):
 
 
 class MainPath:
-    """Launch counts of kernels A to G over the main path's runs
+    """Launch counts of kernels A to H over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
     (`last`)."""
@@ -648,6 +853,7 @@ class MainPath:
         self.wrappers = {"pack_validate": bitpack.pack_and_validate_u32,
                          "pairwise_hamming": pairwise.hamming_pairwise_tiled,
                          "neighbor_extract": dedup.neighbor_extract,
+                         "neighbor_lists_fused": dedup.neighbor_lists_fused,
                          "unique_count": cdev.group_count,
                          "pack_words": bitpack.pack_words_u32,
                          "unpack_ascii": bitpack.unpack_ascii,
@@ -695,10 +901,22 @@ def phase_umi_scale(torch, main_path):
     has_rep = np.unique(labels[(umi_mat == rep_mat[labels]).all(axis=1)])
     assert len(has_rep) == len(reps), (len(has_rep), len(reps))
 
-    # A 512-row slab of the blocked neighbour lists against the plain
-    # dense check.
+    # A 512-row slab of the neighbour lists against the plain dense check;
+    # the lists' wall, and the host's split of the fetched lists into one
+    # array per row timed alone on the same lists.
     words, lengths = dedup._pack_validate_umis(uniq, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     nbrs = dedup._neighbor_lists(words, lengths, 1, device="cuda")
+    lists_s = time.perf_counter() - t0
+    flat = np.concatenate(nbrs)
+    ends = np.cumsum([len(x) for x in nbrs])[:-1]
+    split_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.split(flat, ends)
+        split_times.append(time.perf_counter() - t0)
+    split_s = statistics.median(split_times)
     lo = int(np.random.default_rng(7).integers(0, len(uniq) - 512))
     dense = (hamming_pairwise(words[lo:lo + 512], words) <= 1).cpu().numpy()
     for r in range(512):
@@ -719,10 +937,28 @@ def phase_umi_scale(torch, main_path):
     got = dedup.dedup_umis(small, threshold=1, device="cuda")
     want = dedup.dedup_umis(small, threshold=1, device="cpu")
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+
+    # Error fans at threshold 2: every row has more neighbours than the
+    # main pass keeps (16), so the overflow tier runs kernels B + C on the
+    # main path, after kernel H.
+    fans = fan_umis(200, 12, seed=5)
+    over = main_path.run("umi_scale", dedup.dedup_umis, fans, threshold=2,
+                         device="cuda")
+    ran = main_path.last
+    if not (ran["neighbor_lists_fused"] and ran["pairwise_hamming"]
+            and ran["neighbor_extract"]):
+        raise AssertionError(f"the overflow tier did not run: {ran}")
+    want = dedup.dedup_umis(fans, threshold=2, device="cpu")
+    assert np.array_equal(over[0], want[0]) and over[1] == want[1]
     return (f"wall {wall:.3f} s for {n} UMIs ({len(uniq)} unique) -> "
-            f"{len(reps)} clusters; slab rows {lo}..{lo + 511} exact "
-            f"({edges} edges in all); 5k problem: {len(got[1])} clusters, "
-            f"equal to cpu")
+            f"{len(reps)} clusters; _neighbor_lists {lists_s:.3f} s; "
+            f"np.split into {len(nbrs)} lists alone {split_s:.3f} s "
+            f"(median of 3); slab "
+            f"rows {lo}..{lo + 511} exact ({edges} edges in all); 5k "
+            f"problem: {len(got[1])} clusters, equal to cpu; {len(fans)} "
+            f"fan UMIs at threshold 2: {len(over[1])} clusters, equal to "
+            f"cpu, launches H {ran['neighbor_lists_fused']}, B "
+            f"{ran['pairwise_hamming']}, C {ran['neighbor_extract']}")
 
 
 def phase_umi_cli(torch, main_path, workdir):
@@ -1180,6 +1416,14 @@ def main() -> int:
             raise AssertionError(f"kernels never launched: {missing}")
         if main_path.by_phase["count"]["unique_count"] == 0:
             raise AssertionError("kernel D never launched in phase count")
+        umi = {p: main_path.by_phase[p] for p in ("umi_scale", "umi_cli")}
+        quiet = [p for p, n in umi.items() if n["neighbor_lists_fused"] == 0]
+        if quiet:
+            raise AssertionError(f"kernel H never launched in {quiet}")
+        if not (umi["umi_scale"]["pairwise_hamming"]
+                and umi["umi_scale"]["neighbor_extract"]):
+            raise AssertionError("kernels B + C never launched in the "
+                                 "overflow tier of phase umi_scale")
         if found["matrix_pack_validate"] == 0:
             raise AssertionError("kernel A never launched in "
                                  "count_matrix_device")
@@ -1199,7 +1443,9 @@ def main() -> int:
                 "_read_and_count_table_streamed", "_h2d_chunks"}
         if set(paths) != want:
             raise AssertionError(f"paths not all taken: {paths}")
-        return (f"launches {launches}, in phase count "
+        return (f"launches {launches}, in phase umi_scale "
+                f"{umi['umi_scale']}, in phase umi_cli {umi['umi_cli']}, "
+                f"in phase count "
                 f"{main_path.by_phase['count']}, in phase batch {in_batch} "
                 f"(pairwise path {found['batch_pairwise']}), A in "
                 f"count_matrix_device {found['matrix_pack_validate']}; "
@@ -1209,7 +1455,9 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=r.get("source", SOURCE),
                     replaces=r["replaces"], launches=launches[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for name, r in results.items()]
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for name, r in results.items()]
     print(json.dumps({"kernels": kernels}))
     print(dev["smi"])
     print(json.dumps({"ok": True, "device": {

@@ -227,6 +227,12 @@ _CUDA_SIGNATURES = {
     # threshold, k, stream
     "ssq_neighbor_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
                              _I32, _I32, _P],
+    # rows, u, k, sms -> column ranges of one ssq_neighbor_lists launch
+    "ssq_neighbor_lists_splits": [_I64, _I64, _I32, _I32],
+    # a_words, a_len, a_gid, a_rows, words, len, gid, sidx, scnt, idx,
+    # cnt, rows, u, w, threshold, k, sms, stream
+    "ssq_neighbor_lists": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                           _I64, _I32, _I32, _I32, _I32, _P],
     # words, lengths, weights, perm, scratch, sums, u_words, u_lengths,
     # n_unique, n, w, n_out, stream
     "ssq_group_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,

@@ -54,10 +54,12 @@ _INT32_MAX = 2**31 - 1
 GROUP_TILE_ROWS = 2048
 
 
-def empty_table(width: int = 1, device="cpu", rows: int = 1):
-    """Canonical empty count table: all-pad rows that carry the
-    PAD_LENGTH sentinel (length 0 is a live value - an empty read - and
-    sentinel-filtering consumers would emit it as a phantom key)."""
+def empty_table(width: int = 1, device="cuda", rows: int = 1):
+    """Canonical empty count table on `device` ("cuda" raises without a
+    card): all-pad rows that carry the PAD_LENGTH sentinel (length 0 is a
+    live value - an empty read - and sentinel-filtering consumers would
+    emit it as a phantom key)."""
+    device = _build.resolve_device(device)
     return (torch.zeros((rows, width), dtype=torch.int32, device=device),
             torch.full((rows,), PAD_LENGTH, dtype=torch.int32, device=device),
             torch.zeros(rows, dtype=torch.int32, device=device),

@@ -15,10 +15,11 @@
 // B: pairwise_hamming  replaces shortseq_tpu/ops/pallas_kernels.py
 //                      _pairwise_tiled (the repo's one pallas_call).
 // C: neighbor_extract  replaces shortseq_tpu/umi/dedup.py _adjacency_score
-//                      + _extract_ascending.
+//                      + _extract_ascending on a distance slab from B (the
+//                      overflow tier of _neighbor_lists; its main pass
+//                      runs kernel H, csrc/umi.cu, with no slab).
 // Each kernel's note below says what bounds it on the H100 and what its
-// design does about that.  These are the simple, right first versions: no
-// TMA, no wgmma, no persistent blocks.
+// design does about that.  None uses TMA, wgmma or persistent blocks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -123,32 +124,60 @@ void launch_pack(int g, dim3 grid, int threads, cudaStream_t s,
 // ---------------------------------------------------------------------------
 // B: all-pairs hamming, [N, W] x [M, W] uint32 -> [N, M] int32.
 //
-// Per lane: c = a ^ b; c = ((c >> 1) | c) & 0x55555555; popcount; summed
-// over the W lanes.  At the slice's width (W = 2, 12-nt UMIs) a pair costs
-// 2 popcounts but writes a 4-byte result, so the int32 store stream to HBM,
-// not the popcounts, bounds the kernel; only at W = 64 does __popc
-// throughput (16 per SM per clock) take over.  Design: a 16x16-thread
-// block owns a 64x64 output tile; lanes are staged through shared memory
-// in steps of 16 (lane-major, so a warp reads 16 consecutive B rows
-// without bank conflicts and broadcasts A), and each thread keeps a 4x4
-// register tile of sums.  Stores go out as 64-byte runs of consecutive
-// columns.  The ragged edge is masked here, so callers pad nothing.
-// Fusing kernel C into this epilogue, so the slab never reaches HBM, is
-// left for later.
+// Per lane the reference takes c = a ^ b; ((c >> 1) | c) & 0x55555555;
+// popcount; summed over the W lanes.  Here each pair of lanes is first
+// rewritten as two bit planes (lane_planes; kernel H in umi.cu uses the
+// same planes): P holds the low bit of each 2-bit field, Q the high bit, lane
+// 2p's fields on the even bits and lane 2p+1's on the odd bits.  A field
+// differs iff its bit differs in P or in Q, so one pair of lanes costs
+// XOR, one LOP3 and ONE popcount: ceil(W / 2) popcounts per output.
+//
+// What bounds it, per width (H100 SXM: 3.35 TB/s of HBM; __popc at 16
+// per SM per clock, 4.18e12/s on 132 SMs at 1.98 GHz): the int32 output
+// written once costs 4 B / 3.35e12 = 1.19e-12 s per output, the popcounts
+// 2.39e-13 s each, ceil(W / 2) per output.  So the store stream bounds
+// W <= 8, the popcounts bound W >= 11, and at W = 9 and 10 (5 popcounts
+// per output) the two lie within 1% of each other.
+//
+// Design: a 256-thread block owns a 128 x 128 output tile, 8 x 8 sums per
+// thread in registers.  All lane pairs of the tile's 128 A rows and 128 B
+// rows are staged at once as planes in dynamic shared memory (up to 32
+// pairs = 64 lanes per stage; wider rows loop), plane-major: staging
+// element e is row e % 128 of pair e / 128, so a warp's staging stores
+// fill 32 consecutive words (no bank conflicts).  A thread reads its 8
+// rows and 8 columns per lane pair as 16-byte vectors (two addresses per
+// warp for A, broadcast; 16 consecutive vectors for B).  Its columns
+// are two runs of 4 (tx * 4 and 64 + tx * 4), so each 16-byte streaming
+// store (__stcs: a 1-2 GB slab must not evict the operands from L2) of a
+// warp covers 256 consecutive bytes of a row.  Rows whose start is not
+// 16-byte aligned (M % 4 != 0) and the ragged edge store word by word;
+// callers pad nothing.
 // ---------------------------------------------------------------------------
 
-constexpr int PT = 64;   // output tile edge
-constexpr int PK = 16;   // lanes staged per step
-constexpr int PR = 4;    // register tile edge per thread (PT / 16)
+constexpr int PT = 128;         // output tile edge
+constexpr int PR = 8;           // sums per thread along each edge
+constexpr int PMAX_PAIRS = 32;  // lane pairs staged at once (64 lanes)
 
-__global__ void pairwise_hamming_kernel(const uint32_t* __restrict__ a,
-                                        const uint32_t* __restrict__ b,
-                                        int32_t* __restrict__ out, int64_t n,
-                                        int64_t m, int w) {
-  __shared__ uint32_t as[PK][PT];
-  __shared__ uint32_t bs[PK][PT];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * 16 + tx;
+// Bit planes of lanes (lo, hi): P = low bits, Q = high bits of the 16
+// fields of each, lo's on the even bits and hi's on the odd bits.
+__device__ __forceinline__ uint2 lane_planes(uint32_t lo, uint32_t hi) {
+  const uint32_t m = 0x55555555u;
+  return make_uint2((lo & m) | ((hi & m) << 1),
+                    ((lo >> 1) & m) | (hi & ~m));
+}
+
+__global__ void __launch_bounds__(256, 2)
+    pairwise_hamming_kernel(const uint32_t* __restrict__ a,
+                            const uint32_t* __restrict__ b,
+                            int32_t* __restrict__ out, int64_t n, int64_t m,
+                            int w) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int pairs = (w + 1) / 2;
+  const int stage = min(pairs, PMAX_PAIRS);
+  uint32_t* sa = smem;                   // [stage][P, Q][PT]
+  uint32_t* sb = smem + stage * 2 * PT;  // the same for the B rows
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
   const int64_t row0 = (int64_t)blockIdx.y * PT;
   const int64_t col0 = (int64_t)blockIdx.x * PT;
   int acc[PR][PR];
@@ -157,50 +186,83 @@ __global__ void pairwise_hamming_kernel(const uint32_t* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < PR; ++j) acc[i][j] = 0;
 
-  for (int k0 = 0; k0 < w; k0 += PK) {
-    const int kn = min(PK, w - k0);
-    for (int e = tid; e < PT * PK; e += 256) {
-      const int r = e / PK, k = e % PK;
-      uint32_t va = 0, vb = 0;
-      if (k < kn) {
-        if (row0 + r < n) va = a[(row0 + r) * w + k0 + k];
-        if (col0 + r < m) vb = b[(col0 + r) * w + k0 + k];
+  for (int p0 = 0; p0 < pairs; p0 += stage) {
+    const int np = min(stage, pairs - p0);
+    if (p0) __syncthreads();  // the previous stage is consumed
+    for (int e = tid; e < PT * np; e += 256) {
+      const int r = e % PT, p = e / PT;
+      const int l0 = 2 * (p0 + p), l1 = l0 + 1;
+      uint32_t alo = 0, ahi = 0, blo = 0, bhi = 0;
+      if (row0 + r < n) {
+        const uint32_t* src = a + (row0 + r) * w;
+        alo = src[l0];
+        if (l1 < w) ahi = src[l1];
       }
-      as[k][r] = va;
-      bs[k][r] = vb;
+      if (col0 + r < m) {
+        const uint32_t* src = b + (col0 + r) * w;
+        blo = src[l0];
+        if (l1 < w) bhi = src[l1];
+      }
+      const uint2 pa = lane_planes(alo, ahi), pb = lane_planes(blo, bhi);
+      sa[(2 * p) * PT + r] = pa.x;
+      sa[(2 * p + 1) * PT + r] = pa.y;
+      sb[(2 * p) * PT + r] = pb.x;
+      sb[(2 * p + 1) * PT + r] = pb.y;
     }
     __syncthreads();
-    for (int k = 0; k < kn; ++k) {
-      uint32_t av[PR], bv[PR];
+    for (int p = 0; p < np; ++p) {
+      const uint32_t* ap = sa + 2 * p * PT + ty * PR;
+      const uint32_t* bp = sb + 2 * p * PT + tx * 4;
+      uint32_t aP[PR], aQ[PR], bP[PR], bQ[PR];
 #pragma unroll
-      for (int i = 0; i < PR; ++i) av[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < PR; ++j) bv[j] = bs[k][tx + 16 * j];
+      for (int h = 0; h < 2; ++h) {
+        const uint4 x = *reinterpret_cast<const uint4*>(ap + 4 * h);
+        const uint4 y = *reinterpret_cast<const uint4*>(ap + PT + 4 * h);
+        const uint4 u = *reinterpret_cast<const uint4*>(bp + 64 * h);
+        const uint4 v = *reinterpret_cast<const uint4*>(bp + PT + 64 * h);
+        aP[4 * h] = x.x; aP[4 * h + 1] = x.y; aP[4 * h + 2] = x.z; aP[4 * h + 3] = x.w;
+        aQ[4 * h] = y.x; aQ[4 * h + 1] = y.y; aQ[4 * h + 2] = y.z; aQ[4 * h + 3] = y.w;
+        bP[4 * h] = u.x; bP[4 * h + 1] = u.y; bP[4 * h + 2] = u.z; bP[4 * h + 3] = u.w;
+        bQ[4 * h] = v.x; bQ[4 * h + 1] = v.y; bQ[4 * h + 2] = v.z; bQ[4 * h + 3] = v.w;
+      }
 #pragma unroll
       for (int i = 0; i < PR; ++i)
 #pragma unroll
-        for (int j = 0; j < PR; ++j) {
-          uint32_t c = av[i] ^ bv[j];
-          c = ((c >> 1) | c) & 0x55555555u;
-          acc[i][j] += __popc(c);
-        }
+        for (int j = 0; j < PR; ++j)
+          acc[i][j] += __popc((aP[i] ^ bP[j]) | (aQ[i] ^ bQ[j]));
     }
-    __syncthreads();
   }
+  // Sum j of a thread is column col0 + 64 * (j / 4) + 4 * tx + j % 4.
 #pragma unroll
   for (int i = 0; i < PR; ++i) {
-    const int64_t r = row0 + ty + 16 * i;
-    if (r >= n) continue;
+    const int64_t r = row0 + ty * PR + i;
+    if (r >= n) break;
 #pragma unroll
-    for (int j = 0; j < PR; ++j) {
-      const int64_t c = col0 + tx + 16 * j;
-      if (c < m) out[r * m + c] = acc[i][j];
+    for (int h = 0; h < 2; ++h) {
+      const int64_t c = col0 + 64 * h + 4 * tx;
+      int32_t* dst = out + r * m + c;
+      if (c + 4 <= m && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        __stcs(reinterpret_cast<int4*>(dst),
+               make_int4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                         acc[i][4 * h + 3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < m) __stcs(dst + j, acc[i][4 * h + j]);
+      }
     }
   }
 }
 
+size_t pairwise_smem_bytes(int w) {
+  const int pairs = (w + 1) / 2;
+  const int stage = pairs < PMAX_PAIRS ? pairs : PMAX_PAIRS;
+  return (size_t)stage * 2 * PT * 2 * sizeof(uint32_t);
+}
+
 // ---------------------------------------------------------------------------
-// C: neighbour extraction from a [rows, U] distance slab.
+// C: neighbour extraction from a [rows, U] distance slab (the overflow
+// tier's re-extraction at a larger k; kernel H does the main pass).
 //
 // A neighbour of row r is a column c with dist <= threshold, equal length,
 // equal group id and c != a_rows[r].  Output: idx[r, :k] = the first k
@@ -294,9 +356,15 @@ int ssq_pack_validate(const void* x, const void* lengths, void* words,
 int ssq_pairwise_hamming(const void* a, const void* b, void* out, int64_t n,
                          int64_t m, int w, void* stream) {
   if (n == 0 || m == 0) return 0;
-  const dim3 threads(16, 16);
+  const size_t smem = pairwise_smem_bytes(w);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pairwise_hamming_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((unsigned)((m + PT - 1) / PT), (unsigned)((n + PT - 1) / PT));
-  pairwise_hamming_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  pairwise_hamming_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (int32_t*)out, n, m, w);
   return (int)cudaGetLastError();
 }

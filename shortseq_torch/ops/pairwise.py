@@ -32,8 +32,8 @@ from .. import _build
 from .hamming import hamming_pairwise, hamming_pairwise_onehot
 from .lanes import from_numpy_u32
 
-# The grid's y dimension (65535 blocks) times the 64-row tile.
-_MAX_ROWS = 65535 * 64
+# The grid's y dimension (65535 blocks) times the 128-row tile.
+_MAX_ROWS = 65535 * 128
 
 
 def hamming_pairwise_tiled(a: torch.Tensor, b: torch.Tensor,
@@ -73,7 +73,9 @@ hamming_pairwise_tiled.launches = 0
 
 #: Calibrated winner per key (see _calib_key); exposed for tests.
 _CALIBRATION: dict[str, str] = {}
-_CALIB_VERSION = "v1"
+# v2: kernel B's 128 x 128 tile redesign; a v1 winner was measured against
+# the older kernel and is never read.
+_CALIB_VERSION = "v2"
 # The calibration problem: a small row block against a large table, the
 # shape of the UMI neighbour slabs.  The CPU measures a 16x smaller one.
 _CALIB_ROWS, _CALIB_COLS = 512, 16384
@@ -168,7 +170,7 @@ def _write_cache(path: str, key: str, winner: str, times: dict) -> None:
 def calibrate_pairwise(width: int, device="cuda", force: bool = False):
     """Time every candidate formulation at this lane width on `device` and
     return {name: seconds}; the winner is cached in memory and on disk
-    (~/.cache/shortseq_torch/pairwise_calib_v1.json, keyed by
+    (~/.cache/shortseq_torch/pairwise_calib_v2.json, keyed by
     cuda/<card name>/w<W> or cpu/w<W>), so one process per machine pays
     the measurement.  Returns None when the winner is already in memory,
     and the stored times when the disk answers."""

@@ -19,12 +19,12 @@ Pipeline:
               is missing.
   pack      - the unique UMIs are packed and validated on `device`
               (kernel A, ops/bitpack.py).
-  adjacency - for each row block, kernel B writes the [block, U] hamming
-              slab into one preallocated buffer and kernel C reduces it to
-              each row's first k neighbour columns and its true neighbour
-              count; only those cross to the host.  Rows with more than k
-              neighbours are re-extracted at _OVERFLOW_K, and rows beyond
-              that take a dense mask fetch.
+  adjacency - kernel H (csrc/umi.cu) finds every row's first k neighbour
+              columns and its true neighbour count in one launch, with no
+              distance slab; only those cross to the host.  Rows with more
+              than k neighbours are re-extracted at _OVERFLOW_K (kernel B
+              writes a [256, U] slab, kernel C reduces it), and rows
+              beyond that take a dense mask fetch.
   collapse  - host graph walk over the sparse lists, O(edges).
 
 `device` is explicit everywhere: "cuda" runs the kernels and raises when
@@ -42,8 +42,10 @@ from ..ops.bitpack import pack_and_validate_rows
 from ..ops.lanes import from_numpy_u32
 from ..ops.pairwise import hamming_pairwise_tiled
 
-# Memory budget for one pairwise row block: block_rows * U int32 distances
-# stay under ~1 GiB (16384^2 * 4 B).
+# Memory budget for one row chunk of kernel H's plain version: rows * U
+# int32 distances stay under ~1 GiB (16384^2 * 4 B).  The default `block`
+# of _neighbor_lists (its row padding quantum) comes from it too, as in
+# the JAX package.
 _PAIR_BUDGET = 16384 * 16384
 
 _METHODS = ("unique", "cluster", "adjacency", "directional")
@@ -206,14 +208,99 @@ def neighbor_extract(dist, a_lengths, a_gids, a_rows, lengths, gids,
 neighbor_extract.launches = 0
 
 
+# --- Kernel H: fused neighbour lists ----------------------------------------
+
+
+def neighbor_lists_fused_plain(a_words, a_lengths, a_gids, a_rows, words,
+                               lengths, gids, threshold: int, k: int):
+    """Plain PyTorch version of kernel H: row chunks of the plain
+    hamming_pairwise (each within _PAIR_BUDGET distances), each reduced
+    by neighbor_extract_plain.  Same (idx [R, k], cnt [R]) as
+    neighbor_lists_fused."""
+    from ..ops.hamming import hamming_pairwise
+
+    r, u = a_words.shape[0], words.shape[0]
+    if r == 0:
+        return (torch.empty((0, k), dtype=torch.int32, device=words.device),
+                torch.empty(0, dtype=torch.int32, device=words.device))
+    step = max(1, _PAIR_BUDGET // max(u, 1))
+    idx_parts, cnt_parts = [], []
+    for lo in range(0, r, step):
+        sl = slice(lo, lo + step)
+        idx, cnt = neighbor_extract_plain(
+            hamming_pairwise(a_words[sl], words), a_lengths[sl], a_gids[sl],
+            a_rows[sl], lengths, gids, threshold, k)
+        idx_parts.append(idx)
+        cnt_parts.append(cnt)
+    return torch.cat(idx_parts), torch.cat(cnt_parts)
+
+
+def neighbor_lists_fused(a_words, a_lengths, a_gids, a_rows, words, lengths,
+                         gids, threshold: int, k: int):
+    """Kernel H: the neighbour lists of the R query rows `a_words` ([R, W]
+    int32 lanes, W <= 2, with their lengths, group ids and own column ids
+    `a_rows`) among the U columns `words` -> (idx [R, k] int32, each row's
+    first k neighbour columns ascending with empty slots = U; cnt [R]
+    int32, the true neighbour count).  What kernel B then kernel C
+    compute, with no [R, U] slab.  A CUDA tensor launches the kernel; a CPU
+    tensor takes the plain version."""
+    if a_words.dim() != 2 or words.dim() != 2 or \
+            a_words.shape[1] != words.shape[1]:
+        raise ValueError(f"neighbour operands must be [R, W] and [U, W], got "
+                         f"{tuple(a_words.shape)} and {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return neighbor_lists_fused_plain(a_words, a_lengths, a_gids, a_rows,
+                                          words, lengths, gids, threshold, k)
+    dev = words.device
+    r, w = a_words.shape
+    u = words.shape[0]
+    _build.check_operand(a_words, "a_words", torch.int32, 2, dev)
+    _build.check_operand(words, "words", torch.int32, 2, dev)
+    if not 1 <= w <= 2:
+        raise ValueError(f"kernel H takes 1 or 2 lanes (UMIs of up to 32 nt), "
+                         f"got {w}")
+    if u >= 2**31:
+        raise ValueError(f"kernel H takes fewer than 2^31 columns, got {u}")
+    for name, t, n in (("a_lengths", a_lengths, r), ("a_gids", a_gids, r),
+                       ("a_rows", a_rows, r), ("lengths", lengths, u),
+                       ("gids", gids, u)):
+        _build.check_operand(t, name, torch.int32, 1, dev)
+        if t.shape[0] != n:
+            raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
+    idx = torch.empty((r, k), dtype=torch.int32, device=dev)
+    cnt = torch.empty(r, dtype=torch.int32, device=dev)
+    if r == 0:
+        return idx, cnt
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = _build.cuda_lib().ssq_neighbor_lists_splits(r, u, int(k), sms)
+    if splits == 1:
+        # One column range: the kernel appends straight into idx / cnt.
+        sidx, scnt = idx, cnt
+    else:
+        sidx = torch.empty((splits, r, k), dtype=torch.int32, device=dev)
+        scnt = torch.empty((splits, r), dtype=torch.int32, device=dev)
+    _build.launch("ssq_neighbor_lists", a_words.data_ptr(),
+                  a_lengths.data_ptr(), a_gids.data_ptr(), a_rows.data_ptr(),
+                  words.data_ptr(), lengths.data_ptr(), gids.data_ptr(),
+                  sidx.data_ptr(), scnt.data_ptr(), idx.data_ptr(),
+                  cnt.data_ptr(), r, u, w, int(threshold), int(k), sms)
+    neighbor_lists_fused.launches += 1
+    return idx, cnt
+
+
+neighbor_lists_fused.launches = 0
+
+
 def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
                     device):
     """Sparse adjacency: neighbours[i] = indices j != i with
     hamming(i, j) <= threshold, equal lengths, and (optionally) equal
     group ids.  `words` is an int32 tensor or a numpy uint32 array.
-    Each [block, U] distance slab is computed (kernel B) AND reduced
-    (kernel C) on `device`; host memory and transfer are O(U * k + edges),
-    never O(U^2)."""
+    The main pass is one call of kernel H over all rows on `device`: no
+    distance slab is written, and host memory and transfer are
+    O(U * k + edges), never O(U^2).  Rows with more than k neighbours
+    take kernels B + C at a larger cap, and rows beyond that a dense mask
+    (both on [256, U] slabs)."""
     device = torch.device(device)
     u = len(lengths)
     if u == 0:
@@ -242,20 +329,12 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
             np.asarray(gids).astype(np.int32)).to(device)
     rows_d = torch.arange(u_pad, dtype=torch.int32, device=device)
 
-    # One slab for every block: allocated once per call, not per block.
-    slab = torch.empty((block, u_pad), dtype=torch.int32, device=device)
-    idx_parts, cnt_parts = [], []
-    for lo in range(0, u_pad, block):
-        hi = lo + block
-        hamming_pairwise_tiled(words_d[lo:hi], words_d, out=slab)
-        idx_b, cnt_b = neighbor_extract(
-            slab, lengths_d[lo:hi], gids_d[lo:hi], rows_d[lo:hi],
-            lengths_d, gids_d, threshold, k)
-        idx_parts.append(idx_b)
-        cnt_parts.append(cnt_b)
-    del slab
-    idx = torch.cat(idx_parts).cpu().numpy()[:u]
-    cnt = torch.cat(cnt_parts).cpu().numpy()[:u]
+    # The real rows against every column; the pad rows' lists would be
+    # sliced off, so they are not computed.
+    idx, cnt = neighbor_lists_fused(words_d[:u], lengths_d[:u], gids_d[:u],
+                                    rows_d[:u], words_d, lengths_d, gids_d,
+                                    threshold, k)
+    idx, cnt = idx.cpu().numpy(), cnt.cpu().numpy()
     # Empty slots carry the padded column count.
     valid = idx < u_pad
 

@@ -295,6 +295,53 @@ def test_merge_host_tuples_carries_jax_tables():
     assert int(empty[3]) == 0 and int(empty[1][0]) == PAD
 
 
+@pytest.mark.parametrize("n_out", [3, 29, 40, 500])
+def test_merge_host_tuples_n_out_matches_jax(n_out):
+    """n_out reaches unique_count as in the JAX package: below the group
+    count (3 and 29 of 30 groups) the first n_out groups are kept and
+    n_unique still counts them all; above it the rows past n_unique are
+    padding.  Every output array is compared (W <= 6)."""
+    from shortseq_tpu.count.checkpoint import \
+        merge_host_tuples as jax_merge
+    from shortseq_torch.count.checkpoint import merge_host_tuples
+
+    rng = np.random.default_rng(9)
+    pool = list(dict.fromkeys(_rand_seqs(rng, 30, 10, 32)))
+    assert len(pool) == 30
+    host_tables = []
+    for part in range(3):
+        seqs = [pool[i] for i in rng.integers(0, len(pool), size=60)]
+        words, lengths = _pack(seqs, 2)
+        host_tables.append((words, lengths,
+                            rng.integers(1, 5, size=60).astype(np.int32)))
+    host_tables.append(_pack(pool, 2) + (np.ones(30, np.int32),))
+    want = jax_merge(host_tables, n_out=n_out)
+    got = merge_host_tuples(host_tables, n_out=n_out, device="cpu")
+    assert int(got[3]) == int(want[3]) == 30
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy().view(np.asarray(w).dtype),
+                                      np.asarray(w))
+    if n_out < 30:
+        with pytest.raises(ValueError, match="n_out too small"):
+            tdev.fetch_table(*got)
+
+
+def test_merge_host_tuples_and_empty_table_default_to_the_card():
+    """Like every entry point of the port, both default to device="cuda"
+    and raise without a card."""
+    from shortseq_torch.count.checkpoint import (empty_table,
+                                                 merge_host_tuples)
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works there")
+    table = _pack(["ACGT"], 2) + (np.ones(1, np.int32),)
+    for call in (lambda: merge_host_tuples([table]),
+                 lambda: merge_host_tuples([], n_out=4),
+                 lambda: empty_table(2)):
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            call()
+
+
 TILE = tdev.GROUP_TILE_ROWS
 
 

@@ -107,6 +107,25 @@ def test_kernel_matches_plain_on_card(cuda, n, m, w):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 10, 17, 64, 67])
+@pytest.mark.parametrize("n,m", [(1, 1), (129, 259), (300, 1025),
+                                 (257, 4098)])
+def test_tiles_and_ragged_edges_on_card(cuda, n, m, w):
+    """Kernel B's 128 x 128 tiles: N and M off the tile, M % 4 != 0 (rows
+    that start off a 16-byte boundary), odd W (a lone last lane), W = 67
+    (two staging rounds of 64 lanes), and an `out` view that starts 4
+    bytes into its buffer."""
+    a = from_numpy_u32(_umi_like(n, w, 15)).to(cuda)
+    b = from_numpy_u32(_rand_words(m, w, 16)).to(cuda)
+    b[: min(n, m)] = a[: min(n, m)] ^ 12            # small distances too
+    want = hamming_pairwise(a.cpu(), b.cpu())
+    assert torch.equal(hamming_pairwise_tiled(a, b).cpu(), want)
+    buf = torch.full((n * m + 1,), -1, dtype=torch.int32, device=cuda)
+    out = buf[1:].view(n, m)
+    hamming_pairwise_tiled(a, b, out=out)
+    assert torch.equal(out.cpu(), want) and int(buf[0]) == -1
+
+
 # --- calibration and the selector ------------------------------------------
 
 
