@@ -5,7 +5,7 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A to H (nvcc, sm_90a, one process per source),
+  build      kernels A to H and K10 (nvcc, sm_90a, one process per source),
              the host library and the object extension (g++) from this
              checkout's sources, all started together, with the seconds
              each took, and the object backend
@@ -68,15 +68,32 @@ Phases, one line each; any failure raises and exits nonzero:
              200,000 strings equal to from_matrix, and its invalid-base
              error; to_objects() on 100,000 rows equal to pack(str);
              umi_adjacency on 8,192 12-nt UMIs against the plain pairwise
-  counters   kernels A to H all launched while phases umi_scale, umi_cli,
-             count and batch drove the main path (counts reset just
-             before each run), H in umi_scale and umi_cli, B + C in
-             umi_scale's overflow tier, D during count, A in
+  sharded    count's files 1 and 2 through the sharded and distributed
+             path: `python -m shortseq_torch count FILE1 --shards 8
+             --checkpoint DIR --top 20` as a subprocess, equal to phase
+             count's top 20; 3 of the 8 spills deleted, then
+             count_fastq_sharded recounts exactly those 3 and equals the
+             whole-file table; under a one-rank NCCL group (file:// init)
+             make_sharded_counter on file 1's ASCII rows (tier 1,
+             scattered), read_and_count_fastq_distributed(n_shards=4),
+             count_sharded_auto at capacity factor 0.25 on file 2's
+             64-lane words (tier 2) and file 1's 2-lane words (tier 3),
+             each equal to phase count's table, and DistributedCountTable's
+             len, total, most_common(20), get and values equal to
+             CountTable's; K10 against its plain version (edge cases, then
+             file 1's [10M,2] words at D = 1, 2, 3, 6, 8, 65536 and file
+             2's [2M,64] at D = 8, timed with CUDA events and
+             torch.profiler); the lazy reads (K8) on file 1's table timed
+  counters   kernels A to H and K10 all launched while phases umi_scale,
+             umi_cli, count, batch and sharded drove the main path (counts
+             reset just before each run), H in umi_scale and umi_cli, B +
+             C in umi_scale's overflow tier, D during count, A in
              count_matrix_device, A's pack-only mode, E, F and G in batch,
-             and the pairwise choice in batch;
-             the native host library loaded, the UMI matrix paths and the
-             count path's device engine, 4-chunk transfer and streamed
-             slices all taken
+             K10 in sharded, and the pairwise choice in batch; all three
+             merge tiers taken; the native host library loaded, the UMI
+             matrix paths, the count path's device engine, 4-chunk
+             transfer and streamed slices, count_fastq_sharded and
+             read_and_count_fastq_distributed all taken
 
 Before the last line it prints a JSON object of per-kernel results; the
 last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Random
@@ -98,6 +115,7 @@ SOURCE = "shortseq_torch/csrc/kernels.cu"
 SOURCE_D = "shortseq_torch/csrc/count.cu"
 SOURCE_BATCH = "shortseq_torch/csrc/batch.cu"
 SOURCE_UMI = "shortseq_torch/csrc/umi.cu"
+SOURCE_DIST = "shortseq_torch/csrc/dist.cu"
 
 # The least time a kernel could take (bound_ms): the larger of its bytes
 # (each input read once, each output written once) at the H100 SXM's HBM
@@ -629,32 +647,43 @@ def d_edge_cases(tile):
 
 
 def launch_split(torch, fn, tags, runs=3):
-    """Device ms per call of fn's launches whose kernel names hold each
+    """Device ms a launch of fn's launches whose kernel names hold each
     tag (for D: tile, finish, and the fills of its scratch; for H: the
-    lists and the merge), from torch.profiler; L2 is flushed before each
-    call by an add over 128 MiB, which no tag matches."""
+    lists and the merge), from torch.profiler over `runs` calls, beside
+    the launches it saw of each tag.  Every tag's time is divided by the
+    launches seen, never by `runs`, so a profile that drops a call's
+    events cannot shrink it, and the count shows that it did.  The
+    profile idles 50 ms on each side of the calls: late in a long
+    process the profiler has dropped the launches of a call's first
+    millisecond or so, as if the card's clock had drifted from the
+    host's.  L2 is flushed before each call by an add over 128 MiB,
+    which no tag matches."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         for _ in range(runs):
             flush.add_(1)
             fn()
         torch.cuda.synchronize()
-    split = {}
+        time.sleep(0.05)
+    split, seen = {}, {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0)
         for tag in tags:
             if tag in e.key.lower():
-                split[tag] = split.get(tag, 0.0) + us / 1000 / runs
+                split[tag] = split.get(tag, 0.0) + us / 1000
+                seen[tag] = seen.get(tag, 0) + e.count
     if not split.get(tags[0]):
         return "launch split not measured (the profiler saw no device time)"
-    return "launches: " + ", ".join(f"{k} {v:.4f} ms"
-                                    for k, v in split.items())
+    return f"device ms a launch (launches seen in {runs} calls): " + \
+        ", ".join(f"{k} {v / seen[k]:.4f} ms x {seen[k]}"
+                  for k, v in split.items())
 
 
 def kernel_d(torch, timer, rng, lines):
@@ -838,8 +867,146 @@ def batch_kernels(torch, timer, rng, lines):
     return out
 
 
+def one_bucket_keys(seed, n, d, w=2, length=20):
+    """n distinct uint32 [n, w] keys whose rows of `length` nt all hash to
+    bucket 0 of d (the port's plain hash on the host)."""
+    import numpy as np
+    import torch
+
+    from shortseq_torch.dist.count import _bucket_hash
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    rng = np.random.default_rng(seed)
+    keys = set()
+    while len(keys) < n:
+        cand = rng.integers(0, 2**32, size=(8192, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        b = _bucket_hash(from_numpy_u32(cand),
+                         torch.full((8192,), length, dtype=torch.int32),
+                         d).numpy()
+        keys.update(map(tuple, cand[b == 0]))
+    return np.asarray(sorted(keys)[:n], np.uint32)
+
+
+def k10_edge_cases(tile):
+    """K10's exactness cases from its tile's row count: (name, words
+    uint32 [N, W], lengths, D, cap or None for capacity factor 2).  Every
+    third row is PAD unless the case says otherwise."""
+    import numpy as np
+
+    def rows(seed, n, w):
+        rng = np.random.default_rng(seed)
+        words = rng.integers(0, 2**32, size=(n, w), dtype=np.uint64) \
+            .astype(np.uint32)
+        lengths = rng.integers(0, 16 * w + 1, size=n).astype(np.int32)
+        lengths[::3] = 2**31 - 1
+        return words, lengths
+
+    cases = [(f"D={d} N={n} W={w}", *rows(n + d, n, w), d, None)
+             for d, n, w in ((1, tile - 1, 2), (2, tile, 2), (3, tile + 1, 2),
+                             (6, 3 * tile + 5, 5), (8, 4 * tile, 64),
+                             (3, 37, 1), (65536, 2 * tile + 7, 2))]
+    keys = one_bucket_keys(0, 3 * tile, 6)
+    lengths = np.full(len(keys), 20, np.int32)
+    cases += [("D=6 all rows in bucket 0, cap = rows", keys, lengths, 6,
+               len(keys)),
+              ("D=6 all rows in bucket 0, cap = rows - 1", keys, lengths, 6,
+               len(keys) - 1)]
+    cases.append(("N = 0", np.zeros((0, 2), np.uint32),
+                  np.zeros(0, np.int32), 4, 0))
+    return cases
+
+
+def kernel_k10(torch, timer, lines, shapes, main):
+    """K10 (bucket ids + send buffers) against its plain version: the edge
+    cases of k10_edge_cases and a tile grown past BUCKET_TILE_ROWS (exact,
+    not timed), then each (name, words, lengths, weights, [(D, capacity
+    factor)]) of `shapes`, exact and timed (CUDA events and
+    torch.profiler).  `main` is the (name, D, factor) whose times go in
+    the JSON line; no single PyTorch call computes this function
+    (library_ms null)."""
+    from shortseq_torch.dist import count as dc
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    def check(name, words, lengths, weights, d, cap):
+        got = dc.bucket_send_buffers(words, lengths, weights, d, cap)
+        want = dc.bucket_send_buffers_plain(words, lengths, weights, d, cap)
+        return exact(f"K10 {name}", got, want), want
+
+    errs = []
+    cases = k10_edge_cases(dc.BUCKET_TILE_ROWS)
+    for name, words, lengths, d, cap in cases:
+        n = len(lengths)
+        w = from_numpy_u32(words).cuda()
+        ln = torch.from_numpy(lengths).cuda()
+        wt = torch.arange(n, dtype=torch.int32, device="cuda") % 7 + 1
+        cap = dc.bucket_capacity(n, d, 2.0) if cap is None else cap
+        err, want = check(name, w, ln, wt, d, cap)
+        errs.append(err)
+        if "cap = rows - 1" in name and not int(want[3]):
+            raise AssertionError("K10: the capacity edge did not overflow")
+    saved = dc._HISTOGRAM_INTS
+    dc._HISTOGRAM_INTS = 64   # D x 4 tiles > 64: tiles of 2048 and 4096 rows
+    try:
+        w = from_numpy_u32(cases[3][1]).cuda()
+        ln = torch.from_numpy(cases[3][2]).cuda()
+        wt = torch.ones(len(ln), dtype=torch.int32, device="cuda")
+        for d in (17, 40):
+            errs.append(check(f"grown tile D={d}", w, ln, wt, d,
+                              dc.bucket_capacity(len(ln), d, 2.0))[0])
+    finally:
+        dc._HISTOGRAM_INTS = saved
+    # 4-lane rows 4 bytes past a 16-byte boundary: the scatter's copies
+    # fall back from 16-byte to 4-byte pieces.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    flat = torch.randint(-2**31, 2**31 - 1, (4 * 3001 + 1,),
+                         dtype=torch.int32, device="cuda", generator=gen)
+    ln = torch.randint(0, 65, (3001,), dtype=torch.int32, device="cuda",
+                       generator=gen)
+    ln[::4] = 2**31 - 1
+    wt = torch.ones(3001, dtype=torch.int32, device="cuda")
+    errs.append(check("W=4 at a 4-byte offset", flat[1:].view(3001, 4), ln,
+                      wt, 3, dc.bucket_capacity(3001, 3, 2.0))[0])
+    lines.append(f"K10: {len(cases) + 3} edge cases exact (tile "
+                 f"{dc.BUCKET_TILE_ROWS} rows; one bucket at the capacity "
+                 "edge; N = 0; a grown tile; rows off 16-byte alignment)")
+    got_main = None
+    for name, words, lengths, weights, runs in shapes:
+        n = words.shape[0]
+        for d, factor in runs:
+            cap = dc.bucket_capacity(n, d, factor)
+            err, want = check(f"{name} D={d} factor {factor}", words,
+                              lengths, weights, d, cap)
+            errs.append(err)
+            bnd = bound([words, lengths, weights], want)
+            loads = int(want[1].ne(2**31 - 1).sum())
+            over = int(want[3])
+            del want
+            ms, plain_ms = timer([
+                lambda: dc.bucket_send_buffers(words, lengths, weights, d,
+                                               cap),
+                lambda: dc.bucket_send_buffers_plain(words, lengths, weights,
+                                                     d, cap)])
+            split = launch_split(
+                torch, lambda: dc.bucket_send_buffers(words, lengths,
+                                                      weights, d, cap),
+                ("bucket_hash", "bucket_scan", "bucket_scatter"))
+            lines.append(f"K10 {name} D={d} factor {factor} (cap {cap}, "
+                         f"{loads} rows placed, overflow {over}): "
+                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {split}; "
+                         f"{bound_text(bnd)}")
+            if (name, d, factor) == main:
+                got_main = (ms, plain_ms, bnd)
+    if got_main is None:
+        raise AssertionError(f"K10: no timed case is {main}")
+    return dict(source=SOURCE_DIST, replaces="shortseq_tpu/dist/count.py:75",
+                max_abs_err=max(errs), ms=got_main[0], plain_ms=got_main[1],
+                bound_ms=got_main[2][0], bound_by=got_main[2][1],
+                library_ms=None)
+
+
 class MainPath:
-    """Launch counts of kernels A to H over the main path's runs
+    """Launch counts of kernels A to H and K10 over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
     (`last`)."""
@@ -847,6 +1014,7 @@ class MainPath:
     def __init__(self):
         from shortseq_torch import batch
         from shortseq_torch.count import device as cdev
+        from shortseq_torch.dist import count as dc
         from shortseq_torch.ops import bitpack, hamming, pairwise
         from shortseq_torch.umi import dedup
 
@@ -858,7 +1026,8 @@ class MainPath:
                          "pack_words": bitpack.pack_words_u32,
                          "unpack_ascii": bitpack.unpack_ascii,
                          "trim_words": batch.trim_words_ragged,
-                         "hamming_rows": hamming.hamming_rows}
+                         "hamming_rows": hamming.hamming_rows,
+                         "bucket_send": dc.bucket_send_buffers}
         self.launches = dict.fromkeys(self.wrappers, 0)
         self.by_phase = {}
         self.last = {}
@@ -1181,6 +1350,11 @@ def phase_count(torch, main_path, workdir, found):
         raise AssertionError("count CLI top 20 differs from the API's")
     lines.append(f"2m_150nt_zipf CLI --top 20: {cli_wall:.3f} s, equal to "
                  "the API's")
+    # Phase sharded counts files 1 and 2 again and holds its tables to
+    # these device tables.
+    found["files"] = files
+    found["tables"] = {name: (t[0], t[2]) for name, t in tables.items()
+                       if name != "1m_0-300nt"}
     for line in lines:
         print("  " + line, flush=True)
     return f"files written in {gen_s:.3f} s; all checks passed"
@@ -1360,6 +1534,205 @@ def phase_batch(torch, main_path, workdir, found):
     return "all checks passed"
 
 
+def phase_sharded(torch, main_path, workdir, found, results):
+    """The sharded and distributed count on phase count's files 1 and 2:
+    the resumable CLI, a resume after lost spills, the three merge tiers
+    under a one-rank NCCL group, DistributedCountTable's reads, K10
+    against its plain version, and the lazy table reads (K8) timed."""
+    import numpy as np
+
+    from shortseq_torch.config import PipelineConfig
+    from shortseq_torch.count import checkpoint
+    from shortseq_torch.count.device import unique_count
+    from shortseq_torch.count.ingest import packed_buckets
+    from shortseq_torch.count.table import (_key_to_rows, _lookup,
+                                            _topk_rows, _total)
+    from shortseq_torch.dist import count as dc
+    from shortseq_torch.dist import mesh as dm
+    from shortseq_torch.dist import pipeline as dp
+    from shortseq_torch.dist.table import DistributedCountTable
+    from shortseq_torch.io.fastq import read_fastq_index, read_fastq_matrix
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    run = main_path.run
+    timer = Timer(torch)
+    lines = []
+    path1, n1 = found["files"]["10m_15-32nt"]
+    path2, n2 = found["files"]["2m_150nt_zipf"]
+    dev1, rows1 = found["tables"]["10m_15-32nt"]
+    rows2 = found["tables"]["2m_150nt_zipf"][1]
+
+    def same(table, want, what):
+        w, lens, cnts = dp._table_to_host(table)
+        assert_same_rows({w.shape[1]: (np.asarray(w, np.uint32), lens,
+                                       np.asarray(cnts, np.int64))},
+                         want, what)
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run("sharded", fn, *args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def tier_of(fn, *args):
+        before = dict(dc.count_sharded_auto.tiers)
+        out, wall = timed(fn, *args)
+        taken = [t for t, n in dc.count_sharded_auto.tiers.items()
+                 if n != before[t]]
+        tiers = found.setdefault("tiers", {})
+        for t in taken:
+            tiers[t] = tiers.get(t, 0) + 1
+        return out, taken, wall
+
+    # 1. The CLI: 8 byte-range shards spilled to a checkpoint directory.
+    ck = Path(workdir) / "ck_sharded"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "shortseq_torch", "count", str(path1),
+         "--shards", "8", "--checkpoint", str(ck), "--top", "20"], cwd=ROOT,
+        capture_output=True, timeout=600)
+    cli_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"sharded count CLI exit {proc.returncode}: "
+                           f"{proc.stderr.decode(errors='replace')}")
+    if proc.stdout.decode() != "".join(f"{k}\t{v}\n"
+                                       for k, v in dev1.most_common(20)):
+        raise AssertionError("sharded CLI top 20 differs from phase count's")
+    spills = sorted(p.name for p in ck.glob("counts_*.npz"))
+    if len(spills) != 8:
+        raise AssertionError(f"sharded CLI spilled {spills}")
+    lines.append(f"CLI count --shards 8 --checkpoint --top 20 on file 1: "
+                 f"{cli_wall:.3f} s, equal to phase count's top 20")
+
+    # 2. Resume: 3 of the 8 spills lost, exactly those 3 recounted.
+    lost = [checkpoint.shard_path(ck, 0, s) for s in (1, 4, 6)]
+    for p in lost:
+        p.unlink()
+    saved, real_save = [], checkpoint.save_table
+    checkpoint.save_table = lambda p, *a: saved.append(p) or real_save(p, *a)
+    try:
+        table, resume_s = timed(dp.count_fastq_sharded, path1, n_shards=8,
+                                config=PipelineConfig(checkpoint_dir=str(ck)))
+    finally:
+        checkpoint.save_table = real_save
+    if sorted(saved) != lost:
+        raise AssertionError(f"resume recounted {saved}")
+    same(table, rows1, "resumed file 1")
+    lines.append(f"resume with 3 of 8 spills lost: {resume_s:.3f} s, 3 "
+                 "shards recounted, table equal to the whole-file table")
+    del table
+
+    # 3. A one-rank NCCL group: every collective of dist/ runs through it.
+    dm.initialize_distributed(init_method=f"file://{workdir}/pg_init",
+                              rank=0, world_size=1, device="cuda",
+                              timeout=300)
+    try:
+        mesh = dm.data_mesh(device="cuda")
+        backend = torch.distributed.get_backend()
+        if not (mesh.distributed and mesh.size == 1 and backend == "nccl"):
+            raise AssertionError(f"mesh {mesh}, backend {backend}")
+        mat, lens = read_fastq_matrix(path1)
+        (t1, ok), taken, wall = tier_of(dc.make_sharded_counter(mesh), mat,
+                                        lens)
+        if taken != [1] or t1.layout != "scattered" or not bool(ok.all()):
+            raise AssertionError(f"make_sharded_counter: tiers {taken}, "
+                                 f"{t1.layout}, ok {bool(ok.all())}")
+        same(t1, rows1, "make_sharded_counter on file 1")
+        lines.append(f"make_sharded_counter [{n1},32] bytes: {wall:.3f} s, "
+                     "tier 1, scattered, equal to file 1's table")
+        del mat, lens
+        table, wall = timed(dp.read_and_count_fastq_distributed, path1,
+                            n_shards=4)
+        same(table, rows1, "read_and_count_fastq_distributed on file 1")
+        lines.append(f"read_and_count_fastq_distributed(n_shards=4): "
+                     f"{wall:.3f} s, {table.layout}, equal to file 1's table")
+        del table
+
+        # The fallback tiers at capacity factor 0.25 (one rank: every row
+        # in bucket 0, a quarter of the rows fit).
+        auto = dc.count_sharded_auto(mesh, capacity_factor=0.25)
+        bufs = {}
+        for name, path, n, want, tier in (
+                ("file 2", path2, n2, rows2, 2),
+                ("file 1", path1, n1, rows1, 3)):
+            (w, ln), = packed_buckets(*read_fastq_index(path))
+            w, ln = from_numpy_u32(w).cuda(), torch.from_numpy(ln).cuda()
+            bufs[name] = (w, ln)
+            ones = torch.ones(n, dtype=torch.int32, device="cuda")
+            table, taken, wall = tier_of(auto, w, ln, ones)
+            layout = "scattered" if tier < 3 else "prefix"
+            if taken != [tier] or table.layout != layout:
+                raise AssertionError(f"{name} at 0.25: tiers {taken}, "
+                                     f"{table.layout}")
+            same(table, want, f"{name} at capacity factor 0.25")
+            lines.append(f"count_sharded_auto(0.25) on {name}'s "
+                         f"[{n},{w.shape[1]}] words: {wall:.3f} s, tier "
+                         f"{tier}, {layout}, exact")
+            del table, ones
+
+        # DistributedCountTable on the tier-1 table against CountTable.
+        dct = DistributedCountTable(t1, mesh)
+        top_d = [(str(k), c) for k, c in dct.most_common(20)]
+        top_c = [(str(k), c) for k, c in dev1.most_common(20)]
+        edge = top_c[-1][1]
+        if [c for _, c in top_d] != [c for _, c in top_c] or \
+                [kv for kv in top_d if kv[1] > edge] != \
+                [kv for kv in top_c if kv[1] > edge] or \
+                any(dev1.get(k) != c for k, c in top_d):
+            raise AssertionError("DistributedCountTable.most_common(20)")
+        probe = top_c[0][0]
+        missing = "ACGT" * 8
+        if (len(dct), dct.total()) != (len(dev1), dev1.total()) or \
+                dct.get(probe) != dev1.get(probe) or \
+                dct.get(missing, -1) != dev1.get(missing, -1) or \
+                not np.array_equal(np.sort(dct.values()),
+                                   np.sort(dev1.values())):
+            raise AssertionError("DistributedCountTable reads differ")
+        lines.append(f"DistributedCountTable: len {len(dct)}, total "
+                     f"{dct.total()}, most_common(20), get, values equal to "
+                     "CountTable's")
+        del dct, t1
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # 4. K10 against its plain version on what the main path gives it at
+    # one rank (D = 1: file 1's words at factor 2 in tier 1; both files'
+    # words at factor 0.25, raw in tier 1 and pre-deduped in tier 2), and
+    # at the D of more ranks.  The JSON line takes the tier-1 shape.
+    shapes = []
+    for name, n in (("file 1", n1), ("file 2", n2)):
+        w, ln = bufs.pop(name)
+        ones = torch.ones(n, dtype=torch.int32, device="cuda")
+        label = f"{name} [{n},{w.shape[1]}]"
+        wide = [(d, 2.0) for d in ((1, 2, 3, 6, 8, 65536)
+                                   if name == "file 1" else (8,))]
+        shapes.append((label, w, ln, ones, [(1, 0.25)] + wide))
+        shapes.append((f"{label} pre-deduped", *unique_count(w, ln, ones)[:3],
+                       [(1, 0.25)]))
+    results["bucket_send"] = kernel_k10(
+        torch, timer, lines, shapes, (f"file 1 [{n1},2]", 1, 2.0))
+    del shapes
+
+    # 5. K8, the lazy reads, on file 1's device table (padded to its rows).
+    b = dev1._buckets[0]
+    q_len, lanes = _key_to_rows(probe)
+    q = from_numpy_u32(np.asarray(lanes[:b.width], np.uint32)).cuda()
+    t = timer([lambda: _topk_rows(b.words, b.lengths, b.counts, 20),
+               lambda: _lookup(b.words, b.lengths, b.counts, q, q_len),
+               lambda: _total(b.counts)])
+    bounds = [bound([b.counts], []), bound([b.words, b.lengths, b.counts],
+                                           []), bound([b.counts], [])]
+    lines.append("K8 on file 1's table [" + f"{b.words.shape[0]},"
+                 f"{b.width}]: " + "; ".join(
+                     f"{name} {ms:.4f} ms, {bound_text(bd)}"
+                     for name, ms, bd in zip(("most_common(20)", "get",
+                                              "total"), t, bounds)))
+    for line in lines:
+        print("  " + line, flush=True)
+    return "all checks passed"
+
+
 # --- main -------------------------------------------------------------------
 
 
@@ -1375,6 +1748,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from shortseq_torch.api import counter
+    from shortseq_torch.dist import pipeline
     from shortseq_torch.io import native
     from shortseq_torch.ops import pairwise
     from shortseq_torch.umi import dedup
@@ -1391,7 +1765,9 @@ def main() -> int:
                          (dedup, "_dedup_reads_matrix"),
                          (counter, "count_indexed_device_table"),
                          (counter, "_read_and_count_table_streamed"),
-                         (counter, "_h2d_chunks")):
+                         (counter, "_h2d_chunks"),
+                         (pipeline, "count_fastq_sharded"),
+                         (pipeline, "read_and_count_fastq_distributed")):
         real = getattr(module, name)
 
         def counted(*a, _real=real, _name=name, **k):
@@ -1408,6 +1784,9 @@ def main() -> int:
         phase("umi_cli", phase_umi_cli, torch, main_path, workdir)
         phase("count", phase_count, torch, main_path, workdir, found)
         phase("batch", phase_batch, torch, main_path, workdir, found)
+        phase("sharded", phase_sharded, torch, main_path, workdir, found,
+              results)
+        del found["files"], found["tables"]
     launches = main_path.launches
 
     def counters():
@@ -1436,18 +1815,25 @@ def main() -> int:
         if "tiled" in found["batch_pairwise"] and \
                 in_batch["pairwise_hamming"] == 0:
             raise AssertionError("pairwise chose tiled but B never launched")
+        in_sharded = main_path.by_phase["sharded"]
+        if in_sharded["bucket_send"] == 0:
+            raise AssertionError("K10 never launched in phase sharded")
+        if sorted(found["tiers"]) != [1, 2, 3]:
+            raise AssertionError(f"merge tiers taken: {found['tiers']}")
         if native.get_lib() is None:
             raise AssertionError("native host library not loaded")
         want = {"_dedup_umi_matrix", "_dedup_reads_matrix",
                 "count_indexed_device_table",
-                "_read_and_count_table_streamed", "_h2d_chunks"}
+                "_read_and_count_table_streamed", "_h2d_chunks",
+                "count_fastq_sharded", "read_and_count_fastq_distributed"}
         if set(paths) != want:
             raise AssertionError(f"paths not all taken: {paths}")
         return (f"launches {launches}, in phase umi_scale "
                 f"{umi['umi_scale']}, in phase umi_cli {umi['umi_cli']}, "
                 f"in phase count "
                 f"{main_path.by_phase['count']}, in phase batch {in_batch} "
-                f"(pairwise path {found['batch_pairwise']}), A in "
+                f"(pairwise path {found['batch_pairwise']}), in phase "
+                f"sharded {in_sharded} (merge tiers {found['tiers']}), A in "
                 f"count_matrix_device {found['matrix_pack_validate']}; "
                 f"paths {paths} (_h2d_chunks: buckets sent in 4 chunks)")
 

@@ -1,10 +1,15 @@
 """shortseq_torch: the PyTorch + CUDA port of shortseq_tpu.
 
-Three slices so far, each end to end on the card:
+Four slices so far, each end to end on the card:
   * exact FASTQ dedup: `read_and_count_fastq(_table)` with the host or the
     device engine, the lazy `CountTable`, `ShortSeqCounter`, and the
     ShortSeq objects (`pack`, `from_str`, ...); the device engine sorts
     with torch.sort and groups with kernel D (csrc/count.cu);
+  * its sharded and distributed form (`shortseq_torch.dist`): the
+    checkpointed byte-range pipeline `count_fastq_sharded`
+    (`config.PipelineConfig`), and the torch.distributed merge
+    `read_and_count_fastq_distributed` through the bucketed exchange's
+    kernel K10 (csrc/dist.cu);
   * UMI read deduplication (`dedup_reads`, `dedup_umis`) through kernels
     A, B and C (csrc/kernels.cu), `umi_adjacency` and the UMI objects;
   * the batch API: `PackedBatch` / `pack_batch` (pack, decode, trim,

@@ -2,14 +2,14 @@
 
 Commands:
   count FILE   exact-dedup a FASTQ (plain, gzip or BGZF), print a TSV count
-               table
+               table; --shards N / --checkpoint DIR run the resumable
+               byte-range pipeline (dist/pipeline.py)
   pack SEQ...  pack sequences and show their width class, hex words, hash
   umi FILE     UMI-deduplicate FASTQ reads (molecule table to stdout)
 
 The same arguments and the same TSV / JSON output as
 `python -m shortseq_tpu count|pack|umi`, plus `--device` (default cuda)
-for count and umi.  count's --shards and --checkpoint (the resumable
-sharded pipeline) are not ported yet.
+for count and umi.
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ def _cmd_count(args) -> int:
         # The reference phase-timing print goes to stderr so stdout stays
         # a clean table.
         with contextlib.redirect_stdout(sys.stderr):
-            if args.top:
+            if args.shards > 1 or args.checkpoint:
+                items = _count_sharded_items(args)
+            elif args.top:
                 # Lazy path: only the top N rows are fetched and
                 # materialized (count/table.py), never the full dict.
                 table = read_and_count_fastq_table(
@@ -48,6 +50,36 @@ def _cmd_count(args) -> int:
                  to_json=lambda items: {str(k): v for k, v in items},
                  to_row=lambda k, v: f"{k}\t{v}\n")
     return 0
+
+
+def _count_sharded_items(args):
+    """The resumable pipeline from the shell: byte-range shards, optional
+    crash-safe checkpoint spills (a rerun with the same --checkpoint dir
+    skips completed shards), lazy top-N reads."""
+    from .config import PipelineConfig
+    from .count.table import CountTable
+    from .dist.pipeline import count_fastq_sharded
+
+    if args.engine == "host":
+        # The sharded pipeline counts on device by construction; silently
+        # dropping an explicit engine choice would surprise exactly the
+        # user who picked it to avoid the device backend.
+        raise ValueError(
+            "--engine host is not available with --shards/--checkpoint "
+            "(the sharded pipeline counts on device); drop --engine or "
+            "run without sharding")
+    cfg = PipelineConfig(checkpoint_dir=args.checkpoint)
+    n_shards = args.shards
+    table = count_fastq_sharded(args.file, n_shards=n_shards, config=cfg,
+                                device=args.device)
+    lazy = CountTable.from_device_tables([tuple(table)])
+    print(f"sharded count: {n_shards} shard(s), "
+          f"{len(lazy)} unique sequences"
+          + (f", checkpoints in {args.checkpoint}" if args.checkpoint
+             else ""))
+    if args.top:
+        return lazy.most_common(args.top)
+    return lazy.most_common()
 
 
 def _write_table(args, items, to_json, to_row):
@@ -135,6 +167,20 @@ def main(argv=None) -> int:
                    help="write the table here instead of stdout")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the device engine counts")
+
+    def _positive(v):
+        n = int(v)
+        if n < 1:
+            raise argparse.ArgumentTypeError("must be >= 1")
+        return n
+
+    c.add_argument("--shards", type=_positive, default=1,
+                   help="count in N byte-range shards (the resumable "
+                        "pipeline; requires uncompressed or BGZF FASTQ "
+                        "for N > 1)")
+    c.add_argument("--checkpoint", default=None,
+                   help="spill per-shard tables here; a rerun skips "
+                        "completed shards (crash-safe resume)")
     c.set_defaults(fn=_cmd_count)
 
     u = sub.add_parser("umi", help="UMI-deduplicate FASTQ reads")

@@ -246,6 +246,11 @@ _CUDA_SIGNATURES = {
     "ssq_trim_words": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
     # a, b, out, n, w, stream
     "ssq_hamming_rows": [_P, _P, _P, _I64, _I32, _P],
+    # words, lengths, weights, bucket, rank, counts, totals, send_words,
+    # send_lengths, send_weights, overflow, n, w, d, cap, tile_rows,
+    # n_tiles, stream
+    "ssq_bucket_send": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                        _I32, _I32, _I64, _I64, _I64, _P],
 }
 
 

@@ -273,8 +273,9 @@ def count_indexed_device(data, starts, lengths,
                          device="cuda") -> ShortSeqCounter:
     """Eager form of count_indexed_device_table: materializes the full
     reference-identical dict.  The JAX package's `batch_size` argument is
-    left out: it only set how finely the host gathered, and the port's
-    gather (count/ingest.packed_buckets) has no such granularity."""
+    left out: there it only set how finely the host gathered before the
+    one transfer per bucket (the sharded pipeline's device batches take
+    PipelineConfig.batch_size instead)."""
     return count_indexed_device_table(data, starts, lengths,
                                       device=device).to_counter()
 

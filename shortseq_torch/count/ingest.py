@@ -30,9 +30,11 @@ def bucket_mask(lengths: np.ndarray, lo: int, hi: int) -> np.ndarray:
     return sel
 
 
-def packed_buckets(data, starts, lengths):
-    """Yield (words uint32 [M, width//16], sub_len int32 [M]), one batch
-    per width bucket, host-packed and host-validated.
+def packed_buckets(data, starts, lengths, batch_size: int | None = None):
+    """Yield (words uint32 [M, width//16], sub_len int32 [M]) per width
+    bucket, host-packed and host-validated: at most `batch_size` rows per
+    yield (the sharded pipeline's device batches), or one batch per bucket
+    when it is None.
 
     Raises the reference's errors: "Unsupported base character: X" on an
     invalid byte, TOO_LONG_MSG past 1024 nt.
@@ -53,4 +55,8 @@ def packed_buckets(data, starts, lengths):
         else:
             s_sel = starts[sel]
             len_sel = lengths[sel].astype(np.int32)
-        yield gather_pack(data, s_sel, len_sel, width), len_sel
+        bs = batch_size or len(len_sel)
+        for off in range(0, len(len_sel), bs):
+            sub_len = len_sel[off:off + bs]
+            yield gather_pack(data, s_sel[off:off + bs], sub_len,
+                              width), sub_len

@@ -118,7 +118,8 @@ def _raise_poisoned():
 
 class CountTable:
     """Lazy, bucketed count table (see module docstring).  Build with the
-    engine helpers (api.counter.read_and_count_fastq_table)."""
+    engine helpers (api.counter.read_and_count_fastq_table) or from_merged
+    for distributed results."""
 
     def __init__(self, buckets):
         self._buckets = list(buckets)
@@ -138,6 +139,14 @@ class CountTable:
         return cls(_Bucket(np.asarray(w), np.asarray(l), np.asarray(c),
                            len(np.asarray(l)), device=False)
                    for w, l, c in tables)
+
+    @classmethod
+    def from_merged(cls, table):
+        """A merged distributed table (ShardedCountTable or plain 4-tuple,
+        any layout) -> single-bucket CountTable on host arrays."""
+        from ..dist.pipeline import _table_to_host
+
+        return cls.from_host_tables([_table_to_host(table)])
 
     # -- cheap reads ---------------------------------------------------
 

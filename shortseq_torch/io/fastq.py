@@ -161,18 +161,37 @@ def read_fastq_seqs(filename):
     return [from_bytes(line) for line in read_fastq_lines(filename)]
 
 
-def read_fastq_matrix(filename, pad_to: int = 16):
+def _read_for_range(filename, byte_range):
+    """The bytes to parse for byte_range=(lo, hi) (None: the whole file)
+    and the range left to sync inside them: a plain file's slice plus its
+    sync margin, with (lo, hi) relative to it; a BGZF file's blocks,
+    already synced to whole records (range None)."""
+    if byte_range is None:
+        return _read_bytes(filename), None
+    lo, hi = byte_range
+    if _is_gzip(filename):
+        return _bgzf_range_or_raise(filename, lo, hi), None
+    data, base = _read_range_synced(filename, lo, hi)
+    return data, (lo - base, hi - base)
+
+
+def read_fastq_matrix(filename, pad_to: int = 16, byte_range=None):
     """Parse a FASTQ file into a PAD_BYTE-padded `[N, L]` uint8 matrix
     plus `[N]` int32 lengths, L rounded up to a multiple of `pad_to`.
 
     Uses the native indexer (csrc/fastq_index.cpp) when built and falls
-    back to the vectorized numpy parse."""
+    back to the vectorized numpy parse.  `byte_range=(lo, hi)` restricts
+    parsing to the records starting inside the range, reading only that
+    slice (+ sync margin) of a plain file, or its blocks of a BGZF file."""
     from .native import fastq_matrix_native
 
-    data = _read_bytes(filename)
-    native = fastq_matrix_native(data, pad_to=pad_to)
+    data, rng = _read_for_range(filename, byte_range)
+    native = fastq_matrix_native(data, pad_to=pad_to, byte_range=rng)
     if native is not None:
         return native
+    if rng is not None:
+        # fastq_sync is the native sharder's byte-for-byte twin.
+        data = data[fastq_sync(data, rng[0]):fastq_sync(data, rng[1])]
     buf = np.frombuffer(data, dtype=np.uint8)
     if buf.size == 0:
         return (np.zeros((0, pad_to), dtype=np.uint8),
@@ -206,16 +225,7 @@ def read_fastq_index(filename, byte_range=None):
     margin) from disk."""
     from .native import fastq_index_native
 
-    if byte_range is not None:
-        lo, hi = byte_range
-        if _is_gzip(filename):
-            # Pre-synced whole records: no further boundary work.
-            data, rng = _bgzf_range_or_raise(filename, lo, hi), None
-        else:
-            data, base = _read_range_synced(filename, lo, hi)
-            rng = (lo - base, hi - base)
-    else:
-        data, rng = _read_bytes(filename), None
+    data, rng = _read_for_range(filename, byte_range)
     native = fastq_index_native(data, rng)
     if native is not None:
         return native

@@ -53,6 +53,8 @@ def _bind(lib) -> None:
     lib.ssq_max_length.argtypes = [p_i32, i64]
     lib.ssq_fastq_sync.restype = i64
     lib.ssq_fastq_sync.argtypes = [c_char_p, i64, i64]
+    lib.ssq_pack_rows.restype = i64
+    lib.ssq_pack_rows.argtypes = [p_u8, p_i32, i64, i64, p_u32]
     lib.ssq_gather_pack.restype = i64
     lib.ssq_gather_pack.argtypes = [c_char_p, p_i64, p_i32, i64, i64, p_u32]
     lib.ssq_host_count.restype = i64
@@ -139,13 +141,15 @@ def gather_pack_native(data: bytes, starts: np.ndarray, lengths: np.ndarray,
     return words
 
 
-def fastq_matrix_native(data: bytes, pad_to: int = 16):
+def fastq_matrix_native(data: bytes, pad_to: int = 16,
+                        byte_range: tuple[int, int] | None = None):
     """Parse a FASTQ byte buffer into (PAD_BYTE-padded uint8 matrix,
-    lengths), or None when the native library is missing."""
+    lengths), or None when the native library is missing.  byte_range as
+    in fastq_index_native."""
     lib = get_lib()
     if lib is None:
         return None
-    data, starts, lengths = fastq_index_native(data)
+    data, starts, lengths = fastq_index_native(data, byte_range)
     n_reads = len(starts)
     if n_reads == 0:
         return np.zeros((0, pad_to), dtype=np.uint8), lengths
@@ -157,6 +161,30 @@ def fastq_matrix_native(data: bytes, pad_to: int = 16):
         _as_ptr(lengths, ctypes.c_int32), n_reads, width,
         _as_ptr(mat, ctypes.c_uint8))
     return mat, lengths
+
+
+def pack_rows_native(mat: np.ndarray, lengths: np.ndarray):
+    """Host-side 2-bit packing (the CPU oracle): [N, W] uint8 ->
+    [N, W//16] uint32 in the reference bit layout.  Returns None when the
+    native library is missing; raises on invalid bases like the reference
+    (short_seq_64.pyx:105), naming the first bad read."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n, width = mat.shape
+    if width % 16:
+        raise ValueError(f"matrix width {width} is not a multiple of 16")
+    mat = np.ascontiguousarray(mat, dtype=np.uint8)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int32)
+    words = np.empty((n, width // 16), dtype=np.uint32)
+    bad = lib.ssq_pack_rows(
+        _as_ptr(mat, ctypes.c_uint8), _as_ptr(lengths, ctypes.c_int32),
+        n, width, _as_ptr(words, ctypes.c_uint32))
+    if bad:
+        from ..constants import UNSUPPORTED_BASE_MSG
+
+        raise Exception(f"{UNSUPPORTED_BASE_MSG} in read {bad - 1}")
+    return words
 
 
 def host_count_native(words: np.ndarray, lengths: np.ndarray,

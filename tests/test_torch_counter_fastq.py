@@ -390,7 +390,54 @@ def test_count_cli_output_file_and_errors(cli_files, tmp_path, capsys):
     assert torch_main(["count", bad, "--device", "cpu"]) == 2
     assert "Unsupported base character: N" in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        torch_main(["count", bad, "--shards", "2"])
+        torch_main(["count", bad, "--shards", "0"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--json"], ["--top", "5"]],
+                         ids=["tsv", "json", "top"])
+@pytest.mark.parametrize("name", ["narrow", "mixed"])
+def test_count_cli_sharded_matches_jax(cli_files, tmp_path, capsys, name,
+                                       extra):
+    """count --shards 3 --checkpoint DIR, byte-identical to the JAX
+    package's CLI with the same flags (--top on the mixed file would cut
+    a tie that the JAX package orders by hash in its 64-lane table), then
+    again from the spills."""
+    if name == "mixed" and "--top" in extra:
+        extra = ["--top", "1"]
+    flags = ["--shards", "3", *extra]
+    assert jax_main(["count", cli_files[name], *flags, "--checkpoint",
+                     str(tmp_path / "ck_jax")]) == 0
+    want = capsys.readouterr()
+    for _ in range(2):  # the second run only loads the spills
+        assert torch_main(["count", cli_files[name], *flags, "--checkpoint",
+                           str(tmp_path / "ck_torch"), "--device",
+                           "cpu"]) == 0
+        got = capsys.readouterr()
+        assert got.out == want.out and len(got.out) > 10
+        assert "sharded count: 3 shard(s)" in got.err
+    assert sorted(p.name for p in (tmp_path / "ck_torch").iterdir()) == \
+        sorted(p.name for p in (tmp_path / "ck_jax").iterdir())
+    # --shards alone: no spills.
+    assert torch_main(["count", cli_files[name], "--shards", "2",
+                       "--device", "cpu", *extra]) == 0
+    got = capsys.readouterr()
+    assert jax_main(["count", cli_files[name], "--shards", "2", *extra]) == 0
+    assert got.out == capsys.readouterr().out
+    assert "checkpoints in" not in got.err
+
+
+def test_count_cli_sharded_refuses_host_engine(cli_files, tmp_path, capsys):
+    msgs = []
+    for main in (torch_main, jax_main):
+        assert main(["count", cli_files["narrow"], "--engine", "host",
+                     "--shards", "2"]) == 2
+        msgs.append(capsys.readouterr().err)
+        assert main(["count", cli_files["narrow"], "--engine", "host",
+                     "--checkpoint", str(tmp_path / "ck")]) == 2
+        msgs.append(capsys.readouterr().err)
+    assert msgs[0] == msgs[1] == msgs[2] == msgs[3]
+    assert "--engine host is not available" in msgs[0]
+    assert not (tmp_path / "ck").exists()
 
 
 def test_pack_cli_output_matches_jax(capsys):
