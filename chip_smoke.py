@@ -14,10 +14,18 @@ Phases, one line each; any failure raises and exits nonzero:
              CUDA-event times over 7 runs (3 for the largest), L2 flushed
              before each run, each beside its bound (bytes at 3.35 TB/s or
              popcounts at 4.18e12/s, whichever is longer), and the card's
-             SM clock and power draw sampled throughout; B at
+             SM clock and power draw sampled throughout; A (pack +
+             validate) at its main-path shapes: [10M, 8] lanes (random
+             lengths, 1% bad bytes; with and without pad_valid; the JSON
+             line), the 12-nt UMIs of dedup_umis, each width class of
+             count_matrix_device on file 3, then exact at w = 1, 3, 5, 10
+             words, N = 1 and 33, with its device time (torch.profiler)
+             and its wrapper's host time a call; B at
              [2688] x [102144] W = 2, [4096] x [131072] W = 10 and
              [512] x [16384] W = 6 and 64, each also against the one-hot
-             product; C on B's band slab at k = 16 and 128; H on the band
+             product; C on B's band slab at k = 16 and 128 and on the
+             overflow tier's [256] x [7424] slab of phase umi_scale's fan
+             UMIs at k = 128 (its main-path shape); H on the band
              at k = 16 and 128 (also against B + C) and at the main path's
              [100000] x [102144] (also against B + C over 38 bands); for
              B, C and H also each launch's device time (torch.profiler),
@@ -28,7 +36,8 @@ Phases, one line each; any failure raises and exits nonzero:
              rows, N = 1, W = 1 and 5), a one-key shape, each of its
              launches' device times (torch.profiler), the sort and the
              whole unique_count; kernel A's pack-only mode at [2M, 40]
-             (150-nt rows), E at [2M, 10], F static (8, 100) and ragged
+             (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
+             words), E at [2M, 10], F static (8, 100) and ragged
              at [2M, 10], G at [2M, 10] and [262144, 64], and the one-hot
              pairwise product against B at [512] x [16384], W = 1, 2, 10,
              64
@@ -80,10 +89,15 @@ Phases, one line each; any failure raises and exits nonzero:
              64-lane words (tier 2) and file 1's 2-lane words (tier 3),
              each equal to phase count's table, and DistributedCountTable's
              len, total, most_common(20), get and values equal to
-             CountTable's; K10 against its plain version (edge cases, then
-             file 1's [10M,2] words at D = 1, 2, 3, 6, 8, 65536 and file
-             2's [2M,64] at D = 8, timed with CUDA events and
-             torch.profiler); the lazy reads (K8) on file 1's table timed
+             CountTable's; K10 against its plain version (edge cases at
+             its plan's tile and look-back edges, D = 1024 and 1025 on
+             either side of the one-pass limit, pre-deduped tables, the
+             capacity edge, N = 1, rows off 16-byte alignment; then the
+             main path's D = 1 on both files' words at factor 0.25, raw
+             and pre-deduped, file 1's [10M,2] words at D = 1, 2, 3, 6, 8,
+             65536 and file 2's [2M,64] at D = 8, timed with CUDA events
+             and torch.profiler, its wrapper's host time a call); the lazy
+             reads (K8) on file 1's table timed
   counters   kernels A to H and K10 all launched while phases umi_scale,
              umi_cli, count, batch and sharded drove the main path (counts
              reset just before each run), H in umi_scale and umi_cli, B +
@@ -265,6 +279,22 @@ class Timer:
         return [statistics.median(t) for t in times]
 
 
+def host_us(torch, fn, calls=300):
+    """Mean host microseconds a call of fn, calls issued back to back with
+    no synchronize between them: at a shape whose device work is shorter
+    than the host's, the wrapper's own cost (checks, allocations, the
+    launch)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def exact(name, got, want):
     """Raise unless each kernel output equals its plain version's; the
     max abs error (0)."""
@@ -278,10 +308,12 @@ def exact(name, got, want):
                for g, w in zip(got, want) if g.numel())
 
 
-def bound(inputs, outputs, popc=0):
-    """(bound_ms, bound_by) of one call: its bytes at HBM_BYTES_PER_S
-    against its popcounts at POPC_PER_S, whichever takes longer."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+def bound(inputs, outputs, popc=0, nbytes=0):
+    """(bound_ms, bound_by) of one call: its bytes (the tensors', plus
+    `nbytes` that only the data says it needs) at HBM_BYTES_PER_S against
+    its popcounts at POPC_PER_S, whichever takes longer."""
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in (*inputs, *outputs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = popc / POPC_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -394,34 +426,7 @@ def kernel_checks(torch, results, lines):
     timer = Timer(torch)
     rng = np.random.default_rng(0)
 
-    # A: pack + validate.  1% of bytes invalid, random lengths.
-    alpha = np.frombuffer(b"ACGT", np.uint8)
-    errs, a_main = [], None
-    for n, w4 in ((102144, 8), (8192, 24), (4096, 256)):
-        mat = alpha[rng.integers(0, 4, size=(n, 4 * w4))]
-        bad = rng.random(mat.shape) < 0.01
-        mat[bad] = rng.integers(0, 256, size=int(bad.sum()))
-        lens = rng.integers(0, 4 * w4 + 1, size=n).astype(np.int32)
-        x = from_numpy_u32(mat.view(np.uint32)).cuda()
-        ln = torch.from_numpy(lens).cuda()
-        for pad_valid in (False, True):
-            want = bitpack.pack_and_validate_plain(x, ln, pad_valid)
-            errs.append(exact(
-                f"A [{n},{w4}] pad_valid={pad_valid}",
-                bitpack.pack_and_validate_u32(x, ln, pad_valid), want))
-            ms, plain_ms = timer([
-                lambda: bitpack.pack_and_validate_u32(x, ln, pad_valid),
-                lambda: bitpack.pack_and_validate_plain(x, ln, pad_valid)])
-            bnd = bound([x, ln], want)
-            lines.append(f"A [{n},{w4}] pad_valid={pad_valid}: "
-                         f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                         + bound_text(bnd))
-            if a_main is None:
-                a_main = (ms, plain_ms, bnd)
-    results["pack_validate"] = dict(
-        replaces="shortseq_tpu/ops/bitpack.py:330",
-        max_abs_err=max(errs), ms=a_main[0], plain_ms=a_main[1],
-        bound_ms=a_main[2][0], bound_by=a_main[2][1], library_ms=None)
+    results["pack_validate"] = kernel_a(torch, timer, lines)
 
     # B: all-pairs hamming at its callers' shapes, each against plain and
     # against the one-hot float16 product, its yardstick (library_ms):
@@ -492,7 +497,7 @@ def kernel_checks(torch, results, lines):
     pairwise.hamming_pairwise_tiled(a, words, out=slab)
     sl = slice(lo, lo + block)
     args = (slab, lens_d[sl], gids_d[sl], rows_d[sl], lens_d, gids_d, 3)
-    errs, c_main = [], None
+    errs = []
     for k in (16, 128):
         got = dedup.neighbor_extract(*args, k)
         want = dedup.neighbor_extract_plain(*args, k)
@@ -506,8 +511,33 @@ def kernel_checks(torch, results, lines):
         lines.append(f"C [2688,102144] k={k} ({over} rows over k): "
                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
                      f"{bound_text(bnd)}; {split}")
-        if c_main is None:
-            c_main = (ms, plain_ms, bnd)
+    # C at the main path's slab: one 256-row batch of the overflow tier on
+    # phase umi_scale's 7,400 unique fan UMIs against all 7,424 padded
+    # columns, threshold 2, k = 128 (_OVERFLOW_K), 29 such launches a run.
+    fans = list(dict.fromkeys(fan_umis(200, 12, seed=5)))
+    fw, fl = dedup._pack_validate_umis(fans, "cuda")
+    f_u = len(fans)
+    f_pad = -(-f_u // 128) * 128
+    f_words = torch.zeros((f_pad, 2), dtype=torch.int32, device="cuda")
+    f_words[:f_u] = fw
+    f_lens = torch.full((f_pad,), -1, dtype=torch.int32, device="cuda")
+    f_lens[:f_u] = torch.from_numpy(fl).cuda()
+    f_gids = torch.zeros(f_pad, dtype=torch.int32, device="cuda")
+    f_slab = pairwise.hamming_pairwise_tiled(f_words[:256], f_words)
+    fargs = (f_slab, f_lens[:256], f_gids[:256], rows_d[:256], f_lens, f_gids,
+             2, 128)
+    want = dedup.neighbor_extract_plain(*fargs)
+    errs.append(exact(f"C [256,{f_pad}] k=128",
+                      dedup.neighbor_extract(*fargs), want))
+    ms, plain_ms = timer([lambda: dedup.neighbor_extract(*fargs),
+                          lambda: dedup.neighbor_extract_plain(*fargs)])
+    bnd = bound(fargs[:6], want)
+    split = launch_split(torch, lambda: dedup.neighbor_extract(*fargs),
+                         ("neighbor_extract",))
+    lines.append(f"C [256,{f_pad}] k=128 threshold 2 (the overflow tier's "
+                 f"slab on {f_u} fan UMIs): {ms:.4f} ms, plain {plain_ms:.4f} "
+                 f"ms; {bound_text(bnd)}; {split}")
+    c_main = (ms, plain_ms, bnd)
     results["neighbor_extract"] = dict(
         replaces="shortseq_tpu/umi/dedup.py:180",
         max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1],
@@ -574,6 +604,94 @@ def kernel_checks(torch, results, lines):
 
     results["unique_count"] = kernel_d(torch, timer, rng, lines)
     results.update(batch_kernels(torch, timer, rng, lines))
+
+
+def kernel_a(torch, timer, lines):
+    """Kernel A (pack + validate) against its plain version, exact, at the
+    main path's shapes, timed (CUDA events and torch.profiler): file 1's
+    [10M, 32] byte rows in make_sharded_counter ([10M,8] lanes, random
+    lengths, 1% bad bytes; with and without pad_valid; the JSON line's
+    shape), dedup_umis' 100,000 12-nt UMIs (_pack_validate_umis: [100000,
+    8], zero past 12), and each width class of count_matrix_device on
+    file 3's 1M reads of 0-300 nt ([.., 8], [.., 24], [.., 256]); then,
+    exact only, the widths whose rows a power-of-two thread group left
+    idle (w = 1, 3, 5, 10 words) and the shapes A was first checked at
+    ([102144,8] timed too).  Data is drawn on the card from a seeded
+    generator: 320 MB of bytes at 10M rows."""
+    from shortseq_torch.ops import bitpack
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    alpha = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device="cuda")
+
+    def rows(n, width, lo, hi, bad=0.01):
+        """[n, width // 4] int32 lanes of ACGT bytes, zero past a length
+        drawn from [lo, hi], a fraction `bad` of all bytes random."""
+        codes = torch.randint(0, 4, (n, width), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+        mat = alpha[codes.long()]
+        del codes
+        lens = torch.randint(lo, hi + 1, (n,), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        mat[torch.arange(width, device="cuda")[None, :] >= lens[:, None]] = 0
+        if bad:
+            hit = torch.rand((n, width), device="cuda", generator=gen) < bad
+            mat[hit] = torch.randint(0, 256, (int(hit.sum()),),
+                                     dtype=torch.uint8, device="cuda",
+                                     generator=gen)
+        return mat.view(torch.int32), lens
+
+    def case(name, x, ln, pad_valid, timed):
+        want = bitpack.pack_and_validate_plain(x, ln, pad_valid)
+        err = exact(f"A {name} pad_valid={pad_valid}",
+                    bitpack.pack_and_validate_u32(x, ln, pad_valid), want)
+        if not timed:
+            return err, None
+        bnd = bound([x, ln], want)
+        del want
+        ms, plain_ms = timer([
+            lambda: bitpack.pack_and_validate_u32(x, ln, pad_valid),
+            lambda: bitpack.pack_and_validate_plain(x, ln, pad_valid)])
+        split = launch_split(
+            torch, lambda: bitpack.pack_and_validate_u32(x, ln, pad_valid),
+            ("pack",))
+        lines.append(f"A {name} pad_valid={pad_valid}: {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms; {split}; {bound_text(bnd)}")
+        return err, (ms, plain_ms, bnd)
+
+    errs, main = [], None
+    x, ln = rows(10_000_000, 32, 0, 32)
+    for pad_valid in (False, True):
+        err, t = case("[10M,8] (make_sharded_counter)", x, ln, pad_valid,
+                      True)
+        errs.append(err)
+        main = main or t
+    del x, ln
+    x, ln = rows(100_000, 32, 12, 12, bad=0)
+    errs.append(case("[100000,8] 12-nt UMIs (dedup_umis)", x, ln, False,
+                     True)[0])
+    # File 3's width classes: <= 32, 33-96 and 97-300 nt of 0-300.
+    for n, width, lo, hi in ((109_635, 32, 0, 32), (212_625, 96, 33, 96),
+                             (677_740, 1024, 97, 300)):
+        x, ln = rows(n, width, lo, hi, bad=0)
+        errs.append(case(f"[{n},{width // 4}] (count_matrix_device)", x, ln,
+                         False, True)[0])
+    for w in (1, 3, 5, 10):
+        x, ln = rows(100_003, 16 * w, 0, 16 * w)
+        for pad_valid in (False, True):
+            errs.append(case(f"[100003,{4 * w}]", x, ln, pad_valid, False)[0])
+    for n, w4 in ((102144, 8), (8192, 24), (4096, 256), (1, 4), (33, 12)):
+        x, ln = rows(n, 4 * w4, 0, 4 * w4)
+        for pad_valid in (False, True):
+            errs.append(case(f"[{n},{w4}]", x, ln, pad_valid,
+                             n == 102144 and not pad_valid)[0])
+    x, ln = rows(1024, 32, 0, 32)
+    us = host_us(torch, lambda: bitpack.pack_and_validate_u32(x, ln))
+    lines.append("A: every case exact (w = 1, 3, 5, 10 words, N = 1 and 33 "
+                 f"included); wrapper host time at [1024,8] {us:.1f} us a "
+                 "call")
+    return dict(replaces="shortseq_tpu/ops/bitpack.py:330",
+                max_abs_err=max(errs), ms=main[0], plain_ms=main[1],
+                bound_ms=main[2][0], bound_by=main[2][1], library_ms=None)
 
 
 def d_edge_cases(tile):
@@ -679,7 +797,7 @@ def launch_split(torch, fn, tags, runs=3):
             if tag in e.key.lower():
                 split[tag] = split.get(tag, 0.0) + us / 1000
                 seen[tag] = seen.get(tag, 0) + e.count
-    if not split.get(tags[0]):
+    if not any(split.values()):
         return "launch split not measured (the profiler saw no device time)"
     return f"device ms a launch (launches seen in {runs} calls): " + \
         ", ".join(f"{k} {v / seen[k]:.4f} ms x {seen[k]}"
@@ -790,9 +908,17 @@ def batch_kernels(torch, timer, rng, lines):
     t = timer([lambda: bitpack.pack_words_u32(x),
                lambda: bitpack.pack_words_plain(x)])
     bnd = bound([x], [words])
+    split = launch_split(torch, lambda: bitpack.pack_words_u32(x), ("pack",))
+    errs = [err]
+    for w4 in (4, 12, 20, 36, 40):   # w = 1, 3, 5, 9, 10 words
+        xs = x[:100_003, :w4].contiguous()
+        errs.append(exact(f"A pack-only [100003,{w4}]",
+                          [bitpack.pack_words_u32(xs)],
+                          [bitpack.pack_words_plain(xs)]))
     lines.append(f"A pack-only [2M,40]: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
-                 + bound_text(bnd))
-    entry("pack_words", SOURCE, "shortseq_tpu/ops/bitpack.py:116", [err], t,
+                 f"{split}; {bound_text(bnd)}; exact at w = 1, 3, 5, 9 and "
+                 "10 words of 100,003 rows (ragged N * w % 4)")
+    entry("pack_words", SOURCE, "shortseq_tpu/ops/bitpack.py:116", errs, t,
           bnd)
 
     del x
@@ -888,11 +1014,21 @@ def one_bucket_keys(seed, n, d, w=2, length=20):
     return np.asarray(sorted(keys)[:n], np.uint32)
 
 
-def k10_edge_cases(tile):
-    """K10's exactness cases from its tile's row count: (name, words
-    uint32 [N, W], lengths, D, cap or None for capacity factor 2).  Every
-    third row is PAD unless the case says otherwise."""
+def k10_edge_cases():
+    """K10's exactness cases from its plan's tile rows at each width:
+    (name, words uint32 [N, W], lengths, D, cap or None for capacity
+    factor 2).  Every third row is PAD unless the case says otherwise.
+    They cross tile and look-back edges (N = tile - 1, tile, tile + 1,
+    20 tiles), both sides of the one-pass bucket limit (D = 1024, 1025),
+    each way a row's hash is folded (W = 1, 2, 5, 6, 64, 128, 256: one
+    piece, shuffles, shared atomics, pieces over a warp), a bucket at its
+    capacity and one row over, N = 1 and N = 0."""
     import numpy as np
+
+    from shortseq_torch.dist import count as dc
+
+    def tile(w):
+        return dc.k10_plan(1, w, 1, 16).tile_rows
 
     def rows(seed, n, w):
         rng = np.random.default_rng(seed)
@@ -902,29 +1038,41 @@ def k10_edge_cases(tile):
         lengths[::3] = 2**31 - 1
         return words, lengths
 
-    cases = [(f"D={d} N={n} W={w}", *rows(n + d, n, w), d, None)
-             for d, n, w in ((1, tile - 1, 2), (2, tile, 2), (3, tile + 1, 2),
-                             (6, 3 * tile + 5, 5), (8, 4 * tile, 64),
-                             (3, 37, 1), (65536, 2 * tile + 7, 2))]
-    keys = one_bucket_keys(0, 3 * tile, 6)
+    t2, t5, t64 = tile(2), tile(5), tile(64)
+    cases = [(f"D={d} N={n} W={w}", *rows(n + d + w, n, w), d, None)
+             for d, n, w in ((1, t2 - 1, 2), (2, t2, 2), (3, t2 + 1, 2),
+                             (2, 20 * t2 + 11, 2), (6, 3 * t5 + 5, 5),
+                             (8, 4 * t64, 64), (8, t64 + 1, 64),
+                             (3, 37, 1), (5, 2 * tile(6) + 1, 6),
+                             (4, 3 * tile(128) + 2, 128),
+                             (4, 2 * tile(256) + 3, 256),
+                             (1024, 3 * t2 + 7, 2), (1025, 3 * t2 + 7, 2),
+                             (65536, 2 * t2 + 7, 2))]
+    keys = one_bucket_keys(0, 3 * t2 // 2, 6)
     lengths = np.full(len(keys), 20, np.int32)
     cases += [("D=6 all rows in bucket 0, cap = rows", keys, lengths, 6,
                len(keys)),
               ("D=6 all rows in bucket 0, cap = rows - 1", keys, lengths, 6,
                len(keys) - 1)]
+    one = np.array([[7, 9]], np.uint32)
+    cases += [("N = 1, D = 1", one, np.array([5], np.int32), 1, 1),
+              ("N = 1, D = 5", one, np.array([5], np.int32), 5, 1),
+              ("N = 1, PAD", one, np.array([2**31 - 1], np.int32), 3, 1)]
     cases.append(("N = 0", np.zeros((0, 2), np.uint32),
                   np.zeros(0, np.int32), 4, 0))
     return cases
 
 
-def kernel_k10(torch, timer, lines, shapes, main):
-    """K10 (bucket ids + send buffers) against its plain version: the edge
-    cases of k10_edge_cases and a tile grown past BUCKET_TILE_ROWS (exact,
-    not timed), then each (name, words, lengths, weights, [(D, capacity
-    factor)]) of `shapes`, exact and timed (CUDA events and
-    torch.profiler).  `main` is the (name, D, factor) whose times go in
-    the JSON line; no single PyTorch call computes this function
-    (library_ms null)."""
+K10_TAGS = ("bucket_tile", "bucket_fill", "bucket_hash", "bucket_scan",
+            "bucket_scatter", "memset (device)", "fillfunctor")
+
+
+def k10_edges(torch, lines):
+    """k10_edge_cases, then pre-deduped tables (PAD rows after the live
+    ones, as tier 2 hands them over), a grown three-launch tile, and rows
+    off 16-byte alignment; all exact against the plain version, not
+    timed.  Returns the max abs errors."""
+    from shortseq_torch.count.device import unique_count
     from shortseq_torch.dist import count as dc
     from shortseq_torch.ops.lanes import from_numpy_u32
 
@@ -933,8 +1081,8 @@ def kernel_k10(torch, timer, lines, shapes, main):
         want = dc.bucket_send_buffers_plain(words, lengths, weights, d, cap)
         return exact(f"K10 {name}", got, want), want
 
-    errs = []
-    cases = k10_edge_cases(dc.BUCKET_TILE_ROWS)
+    errs, plans = [], set()
+    cases = k10_edge_cases()
     for name, words, lengths, d, cap in cases:
         n = len(lengths)
         w = from_numpy_u32(words).cuda()
@@ -943,45 +1091,90 @@ def kernel_k10(torch, timer, lines, shapes, main):
         cap = dc.bucket_capacity(n, d, 2.0) if cap is None else cap
         err, want = check(name, w, ln, wt, d, cap)
         errs.append(err)
+        if n:
+            plans.add(dc.k10_plan(n, w.shape[1], d, 16).one_pass)
         if "cap = rows - 1" in name and not int(want[3]):
             raise AssertionError("K10: the capacity edge did not overflow")
+    if plans != {True, False}:
+        raise AssertionError(f"K10 edge cases took one plan only: {plans}")
+    # Tier 2's input: unique_count's table of duplicate-heavy rows.
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for w, n in ((2, 5 * dc.k10_plan(1, 2, 1, 16).tile_rows + 9),
+                 (64, 9 * dc.k10_plan(1, 64, 1, 16).tile_rows + 5)):
+        pool = torch.randint(-2**31, 2**31 - 1, (n // 4, w), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        pick = torch.randint(0, n // 4, (n,), device="cuda", generator=gen)
+        ln = torch.full((n,), 16 * w, dtype=torch.int32, device="cuda")
+        u_w, u_l, u_c, _ = unique_count(pool[pick].contiguous(), ln,
+                                        torch.ones_like(ln))
+        for d, factor in ((1, 0.25), (1, 2.0), (3, 2.0)):
+            errs.append(check(f"pre-deduped [{n},{w}] D={d} factor {factor}",
+                              u_w, u_l, u_c, d,
+                              dc.bucket_capacity(n, d, factor))[0])
     saved = dc._HISTOGRAM_INTS
-    dc._HISTOGRAM_INTS = 64   # D x 4 tiles > 64: tiles of 2048 and 4096 rows
+    dc._HISTOGRAM_INTS = 64   # D x tiles > 64: three launches, grown tiles
     try:
-        w = from_numpy_u32(cases[3][1]).cuda()
+        w = from_numpy_u32(cases[3][1]).cuda()     # 20 tiles of W = 2
         ln = torch.from_numpy(cases[3][2]).cuda()
         wt = torch.ones(len(ln), dtype=torch.int32, device="cuda")
         for d in (17, 40):
+            plan = dc.k10_plan(len(ln), w.shape[1], d, 16)
+            if plan.one_pass or plan.tile_rows == dc.BUCKET_TILE_ROWS:
+                raise AssertionError(f"K10: budget 64 gave {plan}")
             errs.append(check(f"grown tile D={d}", w, ln, wt, d,
                               dc.bucket_capacity(len(ln), d, 2.0))[0])
     finally:
         dc._HISTOGRAM_INTS = saved
-    # 4-lane rows 4 bytes past a 16-byte boundary: the scatter's copies
-    # fall back from 16-byte to 4-byte pieces.
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    flat = torch.randint(-2**31, 2**31 - 1, (4 * 3001 + 1,),
-                         dtype=torch.int32, device="cuda", generator=gen)
-    ln = torch.randint(0, 65, (3001,), dtype=torch.int32, device="cuda",
-                       generator=gen)
-    ln[::4] = 2**31 - 1
-    wt = torch.ones(3001, dtype=torch.int32, device="cuda")
-    errs.append(check("W=4 at a 4-byte offset", flat[1:].view(3001, 4), ln,
-                      wt, 3, dc.bucket_capacity(3001, 3, 2.0))[0])
-    lines.append(f"K10: {len(cases) + 3} edge cases exact (tile "
-                 f"{dc.BUCKET_TILE_ROWS} rows; one bucket at the capacity "
-                 "edge; N = 0; a grown tile; rows off 16-byte alignment)")
+    # Rows 4 or 8 bytes past a 16-byte boundary: narrower pieces.
+    for w, shift, n in ((4, 1, 3001), (2, 1, 5001), (64, 2, 700)):
+        flat = torch.randint(-2**31, 2**31 - 1, (w * n + shift,),
+                             dtype=torch.int32, device="cuda", generator=gen)
+        ln = torch.randint(0, 16 * w + 1, (n,), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        ln[::4] = 2**31 - 1
+        wt = torch.ones(n, dtype=torch.int32, device="cuda")
+        words = flat[shift:].view(n, w)
+        errs.append(check(f"W={w} at a {4 * shift}-byte offset", words, ln,
+                          wt, 3, dc.bucket_capacity(n, 3, 2.0))[0])
+    lines.append(f"K10: {len(cases) + 11} edge cases exact (tiles of "
+                 f"{dc.k10_plan(1, 2, 1, 16).tile_rows} rows at W = 2, "
+                 f"{dc.k10_plan(1, 64, 1, 16).tile_rows} at W = 64; D = 1024 "
+                 "and 1025; both plans; pre-deduped tables; one bucket at the "
+                 "capacity edge; N = 1, 0; a grown tile; rows off 16-byte "
+                 "alignment)")
+    return errs
+
+
+def kernel_k10(torch, timer, lines, shapes, main, edges=True):
+    """K10 (bucket ids + send buffers) against its plain version: with
+    `edges`, k10_edges (exact, not timed), then each (name, words,
+    lengths, weights, [(D, capacity factor)]) of `shapes`, exact and timed
+    (CUDA events and torch.profiler).  `main` is the (name, D, factor)
+    whose times go in the JSON line; no single PyTorch call computes this
+    function (library_ms null)."""
+    from shortseq_torch.dist import count as dc
+
+    errs = k10_edges(torch, lines) if edges else []
+    small = [t[:1024] for t in shapes[0][1:4]]
+    us = host_us(torch, lambda: dc.bucket_send_buffers(*small, 1, 1024))
+    lines.append(f"K10 wrapper host time at [1024,W] of the first shape, "
+                 f"D = 1: {us:.1f} us a call")
     got_main = None
     for name, words, lengths, weights, runs in shapes:
         n = words.shape[0]
         for d, factor in runs:
             cap = dc.bucket_capacity(n, d, factor)
-            err, want = check(f"{name} D={d} factor {factor}", words,
-                              lengths, weights, d, cap)
-            errs.append(err)
-            bnd = bound([words, lengths, weights], want)
+            got = dc.bucket_send_buffers(words, lengths, weights, d, cap)
+            want = dc.bucket_send_buffers_plain(words, lengths, weights, d,
+                                                cap)
+            errs.append(exact(f"K10 {name} D={d} factor {factor}", got, want))
+            # A PAD row is never sent: only live rows' words are needed.
+            live = int(lengths.ne(2**31 - 1).sum())
+            bnd = bound([lengths, weights], want,
+                        nbytes=live * words.shape[1] * 4)
             loads = int(want[1].ne(2**31 - 1).sum())
             over = int(want[3])
-            del want
+            del got, want
             ms, plain_ms = timer([
                 lambda: dc.bucket_send_buffers(words, lengths, weights, d,
                                                cap),
@@ -990,7 +1183,7 @@ def kernel_k10(torch, timer, lines, shapes, main):
             split = launch_split(
                 torch, lambda: dc.bucket_send_buffers(words, lengths,
                                                       weights, d, cap),
-                ("bucket_hash", "bucket_scan", "bucket_scatter"))
+                K10_TAGS)
             lines.append(f"K10 {name} D={d} factor {factor} (cap {cap}, "
                          f"{loads} rows placed, overflow {over}): "
                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {split}; "
@@ -1005,15 +1198,74 @@ def kernel_k10(torch, timer, lines, shapes, main):
                 library_ms=None)
 
 
+def k10_synthetic(torch, rng):
+    """K10's main-path shapes on random words made on the card: file
+    1-like [10M,2] (lengths 15-32, nearly all distinct) and file 2-like
+    [2M,64] (150-nt keys in the 64-lane bucket, Zipf(1.2) from 200,000),
+    each raw and pre-deduped as tier 2 leaves it, at the (D, factor) of
+    phase sharded's timed cases."""
+    from shortseq_torch.count.device import unique_count
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n1, n2 = 10_000_000, 2_000_000
+    w1 = torch.randint(-2**31, 2**31 - 1, (n1, 2), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    l1 = torch.randint(15, 33, (n1,), dtype=torch.int32, device="cuda",
+                       generator=gen)
+    pool = torch.zeros((200_000, 64), dtype=torch.int32, device="cuda")
+    pool[:, :10] = torch.randint(-2**31, 2**31 - 1, (200_000, 10),
+                                 dtype=torch.int32, device="cuda",
+                                 generator=gen)
+    pool[:, 9] &= 0x3FFFFF
+    w2 = pool[torch.from_numpy(zipf_pick(rng, 200_000, n2)).cuda()]
+    del pool
+    l2 = torch.full((n2,), 150, dtype=torch.int32, device="cuda")
+    shapes = []
+    for name, w, ln, wide in (("[10M,2]", w1, l1, (1, 2, 8, 65536)),
+                              ("[2M,64]", w2, l2, (8,))):
+        ones = torch.ones(len(ln), dtype=torch.int32, device="cuda")
+        shapes.append((name, w, ln, ones,
+                       [(1, 0.25)] + [(d, 2.0) for d in wide]))
+        shapes.append((f"{name} pre-deduped", *unique_count(w, ln, ones)[:3],
+                       [(1, 0.25)]))
+    return shapes
+
+
+def a_and_k10(edges=True):
+    """Kernels A and K10 alone, on the card (about a minute with the
+    build): `python3 -c "import chip_smoke as cs; cs.a_and_k10()"` from a
+    checkout's root.  A at kernel_a's shapes, batch_kernels (A's pack-only
+    mode at [2M,40], E, F, G), K10 at k10_synthetic's (with `edges`, its
+    exact edge cases first); each line is printed.  Other
+    checkouts' packages time the same cases when this file is copied to
+    their root, as long as they have the same wrappers."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    timer, lines = Timer(torch), []
+    with SmiSampler() as smi:
+        kernel_a(torch, timer, lines)
+        batch_kernels(torch, timer, np.random.default_rng(0), lines)
+        kernel_k10(torch, timer, lines,
+                   k10_synthetic(torch, np.random.default_rng(9)),
+                   ("[10M,2]", 1, 2.0), edges)
+    for line in lines:
+        print("  " + line, flush=True)
+    print("  during the timings: " + smi.summary(), flush=True)
+
+
 class MainPath:
     """Launch counts of kernels A to H and K10 over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
-    (`last`)."""
+    (`last`); K8's reads' calls in all (`k8_calls`)."""
 
     def __init__(self):
         from shortseq_torch import batch
         from shortseq_torch.count import device as cdev
+        from shortseq_torch.count import table
         from shortseq_torch.dist import count as dc
         from shortseq_torch.ops import bitpack, hamming, pairwise
         from shortseq_torch.umi import dedup
@@ -1031,11 +1283,18 @@ class MainPath:
         self.launches = dict.fromkeys(self.wrappers, 0)
         self.by_phase = {}
         self.last = {}
+        # K8's lazy reads are torch ops; their calls are counted apart.
+        self.k8 = {"most_common": table._topk_rows, "get": table._lookup,
+                   "total": table._total}
+        self.k8_calls = dict.fromkeys(self.k8, 0)
 
     def run(self, phase_name, fn, *args, **kwargs):
-        for w in self.wrappers.values():
+        for w in (*self.wrappers.values(), *self.k8.values()):
             w.launches = 0
+            w.calls = 0
         out = fn(*args, **kwargs)
+        for name, f in self.k8.items():
+            self.k8_calls[name] += f.calls
         self.last = {name: w.launches for name, w in self.wrappers.items()}
         per = self.by_phase.setdefault(phase_name,
                                        dict.fromkeys(self.wrappers, 0))
@@ -1287,10 +1546,13 @@ def phase_count(torch, main_path, workdir, found):
         host, host_wall = count(path, "host")
         dev_rows = live_rows(dev)
         assert_same_rows(dev_rows, live_rows(host), f"{name} device vs host")
-        if not dev.total() == host.total() == n_reads:
-            raise AssertionError(f"{name}: totals {dev.total()}, "
+        # The table's lazy reads (K8) are the main path's last step.
+        total = main_path.run("count", dev.total)
+        if not total == host.total() == n_reads:
+            raise AssertionError(f"{name}: totals {total}, "
                                  f"{host.total()}, reads {n_reads}")
-        top_d = [(str(k), c) for k, c in dev.most_common(20)]
+        top_d = [(str(k), c)
+                 for k, c in main_path.run("count", dev.most_common, 20)]
         top_h = [(str(k), c) for k, c in host.most_common(20)]
         edge = top_h[-1][1]
         if [c for _, c in top_d] != [c for _, c in top_h] or \
@@ -1673,7 +1935,8 @@ def phase_sharded(torch, main_path, workdir, found, results):
 
         # DistributedCountTable on the tier-1 table against CountTable.
         dct = DistributedCountTable(t1, mesh)
-        top_d = [(str(k), c) for k, c in dct.most_common(20)]
+        top_d = [(str(k), c)
+                 for k, c in run("sharded", dct.most_common, 20)]
         top_c = [(str(k), c) for k, c in dev1.most_common(20)]
         edge = top_c[-1][1]
         if [c for _, c in top_d] != [c for _, c in top_c] or \
@@ -1683,8 +1946,9 @@ def phase_sharded(torch, main_path, workdir, found, results):
             raise AssertionError("DistributedCountTable.most_common(20)")
         probe = top_c[0][0]
         missing = "ACGT" * 8
-        if (len(dct), dct.total()) != (len(dev1), dev1.total()) or \
-                dct.get(probe) != dev1.get(probe) or \
+        if (len(dct), run("sharded", dct.total)) != \
+                (len(dev1), dev1.total()) or \
+                run("sharded", dct.get, probe) != dev1.get(probe) or \
                 dct.get(missing, -1) != dev1.get(missing, -1) or \
                 not np.array_equal(np.sort(dct.values()),
                                    np.sort(dev1.values())):
@@ -1835,6 +2099,7 @@ def main() -> int:
                 f"(pairwise path {found['batch_pairwise']}), in phase "
                 f"sharded {in_sharded} (merge tiers {found['tiers']}), A in "
                 f"count_matrix_device {found['matrix_pack_validate']}; "
+                f"K8 calls (torch ops) {main_path.k8_calls}; "
                 f"paths {paths} (_h2d_chunks: buckets sent in 4 chunks)")
 
     phase("counters", counters)

@@ -71,12 +71,14 @@ def _topk_rows(words, lengths, counts, k: int):
     minimum over ALL counts: a poisoned (-1) entry is by definition the
     largest true count and would never surface in the top k, so the
     caller must raise on it."""
+    _topk_rows.calls += 1
     idx = torch.sort(counts, descending=True, stable=True).indices[:k]
     return words[idx], lengths[idx], counts[idx], counts.min()
 
 
 def _lookup(words, lengths, counts, q_words, q_len: int):
     """Sum of the counts of rows equal to the query key (at most one)."""
+    _lookup.calls += 1
     hit = (lengths == q_len) & (words == q_words[None, :]).all(dim=1)
     return torch.where(hit, counts, 0).sum()
 
@@ -85,8 +87,14 @@ def _total(counts):
     """Sum of all counts (padding rows carry 0), or -1 when it leaves the
     int32 range or an entry is already poisoned (-1): the JAX package's
     int32 total with its shadow-sum wrap check, summed exactly in int64."""
+    _total.calls += 1
     s = counts.sum(dtype=torch.int64)
     return torch.where((s > _INT32_MAX) | (counts.min() < 0), -1, s)
+
+
+# Calls of K8's reads (torch ops, not hand kernels), counted as the hand
+# kernels' wrappers count their launches.
+_topk_rows.calls = _lookup.calls = _total.calls = 0
 
 
 def _key_to_rows(key):

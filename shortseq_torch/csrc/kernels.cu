@@ -30,23 +30,50 @@ namespace {
 // A: pack + validate.
 //
 // Bound by HBM bytes: it reads 1 B per nucleotide and writes 0.25 B (plus
-// one ok byte per row); the arithmetic is ~20 integer ops per 4 bytes.  So
-// the design is one read and one write, with no dot and no second pass:
-// each thread loads one 16-byte vector (16 nucleotides = one output word),
-// packs and validates it in registers and stores one word.  A row's words
-// go to a group of G = min(32, pow2 >= W) neighbouring lanes of a warp, so
-// a warp's loads are contiguous, and the row's ok flag is an OR of the
-// group's fail bits by warp shuffles - no shared memory, no atomics.
-// Pack-only mode (VALIDATE = false, selected by ok == nullptr) makes the
-// same loads and stores with no bloom test, no length read and no ok
-// store: the codes of every lane are written whatever the bytes, so zero
-// padding packs to code 0 as in the JAX package's pack_rows.
+// the row's length in and one ok byte out when validating); the
+// arithmetic is ~20 integer ops per 4 bytes, far below the card's rate.
+// So the design is one read and one write, with no dot and no second
+// pass, and what matters is keeping enough bytes in flight with no idle
+// threads.  Both modes map threads FLAT onto the N * W output words (one
+// 16-byte input vector of 16 nucleotides per word), never a row group,
+// so no width leaves threads idle (a power-of-two group per row idled 6
+// of 16 threads at the 10-word rows of 150-nt reads), and each thread
+// issues several 16-byte loads before it uses any.
+//
+// Pack-only mode (pack_words_kernel, selected by ok == nullptr) has no
+// per-row reduction at all: each thread of a grid-stride loop loads 4
+// consecutive input vectors (64 B in flight) and writes their 4 words as
+// one 16-byte store; the ragged tail of N * W % 4 words stores word by
+// word.  No bloom test, no length read: every lane's codes are written
+// whatever its bytes, so zero padding packs to code 0 as in the JAX
+// package's pack_rows.
+//
+// Validate mode (pack_validate_kernel): a block owns R whole rows, R * W
+// ~ 1024 words (512 or 256 when that leaves fewer than 4 blocks an SM),
+// and its threads walk those words flat, 4 issued at once (a coalesced
+// 512 B per warp each), so a row's words may fall to several threads.
+// Each word's load goes out with its row's length load (one round trip;
+// neighbouring words hit the same length in L1); a word's fail bits OR
+// into its row's flag in shared memory (atomicOr, only when a byte
+// fails); after one barrier a thread per row writes ok.  A block has a
+// thread a word up to 256 words, else 256 threads; no block launches a
+// warp more than its words need.
 // ---------------------------------------------------------------------------
+
+constexpr int kPackThreads = 256;
+constexpr int kPackLoads = 4;        // 16-byte loads a thread issues at once
+constexpr int kPackBlockWords = kPackThreads * kPackLoads;
 
 // 4 ASCII bytes of a lane -> their 4 two-bit codes in the low byte.
 __device__ __forceinline__ uint32_t codes_byte(uint32_t x) {
   uint32_t c = (x >> 1) & 0x03030303u;
   return (c | (c >> 6) | (c >> 12) | (c >> 18)) & 0xFFu;
+}
+
+// 16 ASCII bytes -> their output word (16 codes, LSB first).
+__device__ __forceinline__ uint32_t pack_vector(uint4 v) {
+  return codes_byte(v.x) | (codes_byte(v.y) << 8) | (codes_byte(v.z) << 16) |
+         (codes_byte(v.w) << 24);
 }
 
 // 0x40 in each byte that fails the reference bloom, i.e. whose (c & 63)
@@ -71,54 +98,100 @@ __device__ __forceinline__ uint32_t tail_mask(int rem) {
   return 0x40404040u >> (8 * (4 - rem));
 }
 
-template <int G, bool VALIDATE>
-__global__ void pack_validate_kernel(const uint4* __restrict__ x,
-                                     const int32_t* __restrict__ lengths,
-                                     uint32_t* __restrict__ words,
-                                     uint8_t* __restrict__ ok, int64_t n,
-                                     int w, int pad_valid) {
-  const int sub = threadIdx.x & (G - 1);
-  const int64_t row =
-      (int64_t)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
-  uint32_t bad = 0;
-  if (row < n) {
-    const int len = VALIDATE ? lengths[row] : 0;
-    for (int j = sub; j < w; j += G) {
-      const uint4 v = x[row * w + j];
-      const uint32_t lane[4] = {v.x, v.y, v.z, v.w};
-      uint32_t out = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (VALIDATE) {
-          uint32_t fail = bloom_fail_bits(lane[k]);
-          if (!pad_valid) fail &= tail_mask(len - 16 * j - 4 * k);
-          bad |= fail;
-        }
-        out |= codes_byte(lane[k]) << (8 * k);
-      }
-      words[row * w + j] = out;
-    }
+__global__ void __launch_bounds__(kPackThreads)
+    pack_words_kernel(const uint4* __restrict__ x,
+                      uint32_t* __restrict__ words, int64_t total) {
+  const int64_t groups = total / 4;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  uint4* out = reinterpret_cast<uint4*>(words);
+  for (int64_t g = first; g < groups; g += stride) {
+    const uint4* src = x + 4 * g;
+    const uint4 a = __ldcs(src), b = __ldcs(src + 1), c = __ldcs(src + 2),
+                d = __ldcs(src + 3);
+    out[g] = make_uint4(pack_vector(a), pack_vector(b), pack_vector(c),
+                        pack_vector(d));
   }
-  if (!VALIDATE) return;
-  // Every lane of the warp reaches the shuffles (rows past n carry 0).
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    bad |= __shfl_xor_sync(0xffffffffu, bad, off);
-  if (row < n && sub == 0) ok[row] = bad == 0 ? 1 : 0;
+  const int64_t tail = 4 * groups + first;
+  if (tail < total) words[tail] = pack_vector(__ldcs(x + tail));
 }
 
-template <bool VALIDATE>
-void launch_pack(int g, dim3 grid, int threads, cudaStream_t s,
-                 const uint4* x, const int32_t* lengths, uint32_t* words,
-                 uint8_t* ok, int64_t n, int w, int pad_valid) {
-  switch (g) {
-    case 1: pack_validate_kernel<1, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
-    case 2: pack_validate_kernel<2, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
-    case 4: pack_validate_kernel<4, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
-    case 8: pack_validate_kernel<8, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
-    case 16: pack_validate_kernel<16, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
-    default: pack_validate_kernel<32, VALIDATE><<<grid, threads, 0, s>>>(x, lengths, words, ok, n, w, pad_valid); break;
+__global__ void __launch_bounds__(kPackThreads)
+    pack_validate_kernel(const uint4* __restrict__ x,
+                         const int32_t* __restrict__ lengths,
+                         uint32_t* __restrict__ words,
+                         uint8_t* __restrict__ ok, int64_t n, int w,
+                         int block_rows, int pad_valid) {
+  extern __shared__ uint32_t s_bad[];  // [block_rows]
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const float inv_w = 1.0f / (float)w;
+  const int64_t row0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)min((int64_t)block_rows, n - row0);
+  const int nw = rows * w;
+  const uint4* src = x + row0 * w;
+  uint32_t* dst = words + row0 * w;
+  for (int r = tid; r < rows; r += threads) s_bad[r] = 0;
+  __syncthreads();
+  for (int base = 0; base < nw; base += threads * kPackLoads) {
+    // Each word's 16 bytes and its row's length load together: one round
+    // trip to memory (a row's length serves its neighbouring words from
+    // L1).  Row of word p: (p + 0.5) / w in float is exact for p < 2^20
+    // (the quotient lies >= 0.5 / w from an integer); a block of one row
+    // has only row 0.
+    uint4 v[kPackLoads];
+    int r[kPackLoads], len[kPackLoads];
+#pragma unroll
+    for (int k = 0; k < kPackLoads; ++k) {
+      const int p = base + k * threads + tid;
+      r[k] = block_rows == 1 ? 0 : __float2int_rz((p + 0.5f) * inv_w);
+      if (p < nw) {
+        v[k] = __ldcs(src + p);
+        if (!pad_valid) len[k] = __ldg(lengths + row0 + r[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPackLoads; ++k) {
+      const int p = base + k * threads + tid;
+      uint32_t bad = 0;
+      if (p < nw) {
+        dst[p] = pack_vector(v[k]);
+        const uint32_t f0 = bloom_fail_bits(v[k].x),
+                       f1 = bloom_fail_bits(v[k].y),
+                       f2 = bloom_fail_bits(v[k].z),
+                       f3 = bloom_fail_bits(v[k].w);
+        bad = f0 | f1 | f2 | f3;
+        if (bad && !pad_valid) {
+          // Only bytes before the row's length count.
+          const int rem = len[k] - 16 * (p - r[k] * w);
+          if (rem < 16)
+            bad = (f0 & tail_mask(rem)) | (f1 & tail_mask(rem - 4)) |
+                  (f2 & tail_mask(rem - 8)) | (f3 & tail_mask(rem - 12));
+        }
+      }
+      if (bad) atomicOr(s_bad + r[k], 1u);
+    }
   }
+  __syncthreads();
+  for (int r = tid; r < rows; r += threads) ok[row0 + r] = s_bad[r] == 0;
+}
+
+// Threads for `items` items of work, a thread an item: rounded up to a
+// warp, at most kPackThreads.
+int item_threads(int64_t items) {
+  const int64_t t = (items + 31) / 32 * 32;
+  return (int)(t < kPackThreads ? t : kPackThreads);
+}
+
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
 }
 
 // ---------------------------------------------------------------------------
@@ -335,21 +408,39 @@ int ssq_pack_validate(const void* x, const void* lengths, void* words,
                       void* ok, int64_t n, int w, int pad_valid,
                       void* stream) {
   if (n == 0 || w == 0) return 0;
-  const int threads = 256;
-  int g = 1;
-  while (g < w && g < 32) g <<= 1;
-  const int64_t rows_per_block = threads / g;
-  const dim3 grid((unsigned)((n + rows_per_block - 1) / rows_per_block));
   cudaStream_t s = (cudaStream_t)stream;
   auto xv = (const uint4*)x;
-  auto lv = (const int32_t*)lengths;
   auto wv = (uint32_t*)words;
-  auto ov = (uint8_t*)ok;
-  // ok == nullptr: pack-only mode (lengths and pad_valid are not read).
-  if (ov == nullptr)
-    launch_pack<false>(g, grid, threads, s, xv, lv, wv, ov, n, w, pad_valid);
-  else
-    launch_pack<true>(g, grid, threads, s, xv, lv, wv, ov, n, w, pad_valid);
+  if (ok == nullptr) {
+    // Pack-only mode (lengths and pad_valid are not read).  The 16-byte
+    // stores need an aligned output, which the wrapper allocates.
+    if ((uintptr_t)words % 16) return (int)cudaErrorMisalignedAddress;
+    const int64_t total = n * w;
+    const int64_t groups = (total + 3) / 4;
+    const int threads = item_threads(groups);
+    int64_t blocks = (groups + threads - 1) / threads;
+    const int64_t most = (int64_t)sm_count() * (2048 / kPackThreads);
+    if (blocks > most) blocks = most;
+    pack_words_kernel<<<(unsigned)blocks, threads, 0, s>>>(xv, wv, total);
+    return (int)cudaGetLastError();
+  }
+  // A block owns whole rows, about kPackBlockWords words of them, or a
+  // half or a quarter of that while fewer than 4 blocks an SM would be
+  // left.
+  int64_t block_words = kPackBlockWords;
+  while (block_words > kPackThreads &&
+         n * w < (int64_t)sm_count() * 4 * block_words)
+    block_words /= 2;
+  const int block_rows = w >= block_words ? 1 : (int)(block_words / w);
+  const int64_t blocks = (n + block_rows - 1) / block_rows;
+  const int64_t first_rows = n < block_rows ? n : block_rows;
+  // Up to kPackLoads words a thread: a block of 256 or 512 words (small
+  // inputs) has more threads each with fewer loads.
+  const int threads = item_threads(first_rows * w);
+  const size_t smem = sizeof(uint32_t) * (size_t)block_rows;
+  pack_validate_kernel<<<(unsigned)blocks, threads, smem, s>>>(
+      xv, (const int32_t*)lengths, wv, (uint8_t*)ok, n, w, block_rows,
+      pad_valid);
   return (int)cudaGetLastError();
 }
 

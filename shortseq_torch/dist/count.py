@@ -178,17 +178,59 @@ def bucket_send_buffers_plain(words, lengths, weights, n_buckets: int,
             send_weights[:d * cap], overflow)
 
 
-#: Most ints of K10's per-(bucket, tile) histogram: tiles grow past
-#: BUCKET_TILE_ROWS rows when D * tiles would exceed it.
+#: Most ints of K10's per-(tile, bucket) array: the one-pass plan's
+#: look-back states, or the three-launch plan's histogram, whose tiles
+#: grow past BUCKET_TILE_ROWS rows when D * tiles would exceed it.
 _HISTOGRAM_INTS = 1 << 26
 BUCKET_TILE_ROWS = 1024
+#: Most D of the one-pass plan (16 warps' running counts in shared
+#: memory).
+ONE_PASS_BUCKETS = 1024
+#: Row vectors of a one-pass tile: 512 threads keep 8 each.
+_TILE_VECTORS = 4096
+
+
+class K10Plan(NamedTuple):
+    """How csrc/dist.cu runs one call: `one_pass` (a tile launch and a
+    fill launch) or three launches; the bytes of a row piece; the rows of
+    a tile; the scratch ints, of which the kernel's entry point zeroes the
+    first `zeroed`."""
+
+    one_pass: bool
+    vec_bytes: int
+    tile_rows: int
+    n_tiles: int
+    scratch_ints: int
+    zeroed: int
+
+
+def k10_plan(n: int, w: int, d: int, align: int) -> K10Plan:
+    """K10's plan for n rows of w lanes into d buckets, `align` the
+    common alignment in bytes of the words and the send buffers.  One
+    pass when d <= ONE_PASS_BUCKETS, n < 2^30 (30-bit look-back counts)
+    and its d * tiles states fit _HISTOGRAM_INTS; else three launches."""
+    vec = 16 if w % 4 == 0 and align % 16 == 0 else \
+        8 if w % 2 == 0 and align % 8 == 0 else 4
+    vpr = 4 * w // vec
+    if d <= ONE_PASS_BUCKETS and n < 2**30 and vpr <= _TILE_VECTORS:
+        tile_rows = _TILE_VECTORS // vpr
+        n_tiles = -(-n // tile_rows)
+        if d * n_tiles <= _HISTOGRAM_INTS:
+            ints = 2 + d + d * n_tiles
+            return K10Plan(True, vec, tile_rows, n_tiles, ints, ints)
+    tile_rows = BUCKET_TILE_ROWS
+    while d * -(-n // tile_rows) > _HISTOGRAM_INTS:
+        tile_rows *= 2
+    n_tiles = -(-n // tile_rows)
+    return K10Plan(False, vec, tile_rows, n_tiles, d * n_tiles + 2 * n + d,
+                   d * n_tiles)
 
 
 def bucket_send_buffers(words, lengths, weights, n_buckets: int, cap: int):
     """K10 (csrc/dist.cu): the bucketed exchange's send buffers, as
-    bucket_send_buffers_plain computes them (three launches, counted as
-    one).  A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version."""
+    bucket_send_buffers_plain computes them (k10_plan's launches, counted
+    as one).  A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain version."""
     _check_buckets(n_buckets)
     if words.device.type == "cpu":
         return bucket_send_buffers_plain(words, lengths, weights, n_buckets,
@@ -204,25 +246,27 @@ def bucket_send_buffers(words, lengths, weights, n_buckets: int, cap: int):
         raise ValueError(f"K10 takes n < 2^31 rows and 0 <= cap <= n, got "
                          f"n {n}, cap {cap}")
     d = n_buckets
-    send_words = torch.empty((d * cap, w), dtype=torch.int32, device=dev)
-    send_lengths = torch.empty(d * cap, dtype=torch.int32, device=dev)
-    send_weights = torch.empty(d * cap, dtype=torch.int32, device=dev)
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
-    if n == 0:
-        return send_words, send_lengths, send_weights, overflow
-    tile_rows = BUCKET_TILE_ROWS
-    while d * -(-n // tile_rows) > _HISTOGRAM_INTS:
-        tile_rows *= 2
-    n_tiles = -(-n // tile_rows)
-    bucket = torch.empty(n, dtype=torch.int32, device=dev)
-    rank = torch.empty(n, dtype=torch.int32, device=dev)
-    counts = torch.zeros(d * n_tiles, dtype=torch.int32, device=dev)
-    totals = torch.empty(d, dtype=torch.int32, device=dev)
+    slots = d * cap
+    if n == 0:  # cap == 0: nothing to send, nothing to launch
+        none = torch.empty(0, dtype=torch.int32, device=dev)
+        return (none.view(0, w), none, none,
+                torch.zeros((), dtype=torch.int32, device=dev))
+    # The caching allocator's blocks are 512-byte aligned, so the send
+    # words, first in the one allocation below, align as well as any.
+    plan = k10_plan(n, w, d, words.data_ptr())
+    # Outputs and scratch are views of one allocation: each torch call
+    # costs the host microseconds.
+    send_words, send_lengths, send_weights, overflow, scratch = torch.empty(
+        slots * (w + 2) + 1 + plan.scratch_ints, dtype=torch.int32,
+        device=dev).split([slots * w, slots, slots, 1, plan.scratch_ints])
+    send_words = send_words.view(slots, w)
+    overflow = overflow.view(())
     _build.launch("ssq_bucket_send", words.data_ptr(), lengths.data_ptr(),
-                  weights.data_ptr(), bucket.data_ptr(), rank.data_ptr(),
-                  counts.data_ptr(), totals.data_ptr(), send_words.data_ptr(),
-                  send_lengths.data_ptr(), send_weights.data_ptr(),
-                  overflow.data_ptr(), n, w, d, cap, tile_rows, n_tiles)
+                  weights.data_ptr(), scratch.data_ptr(),
+                  send_words.data_ptr(), send_lengths.data_ptr(),
+                  send_weights.data_ptr(), overflow.data_ptr(), n, w, d, cap,
+                  plan.tile_rows, plan.n_tiles, plan.vec_bytes,
+                  int(plan.one_pass), plan.zeroed)
     bucket_send_buffers.launches += 1
     return send_words, send_lengths, send_weights, overflow
 

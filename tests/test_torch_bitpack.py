@@ -99,6 +99,35 @@ class TestPackValidate:
         # Both kinds of rows really occur.
         assert 0 < int(ok_t.sum()) < len(lens)
 
+    @pytest.mark.parametrize("w4", [4, 24, 256])
+    @pytest.mark.parametrize("pad_valid", [False, True])
+    def test_plain_matches_jax_at_length_edges(self, w4, pad_valid):
+        """Lengths 0, one byte either side of every lane and word edge,
+        and the full width, on rows with one bad byte at a random place
+        and on all-valid rows: the mask's edges that kernel A's tail_mask
+        computes per lane."""
+        rng = np.random.default_rng(w4 + pad_valid)
+        width = 4 * w4
+        edges = sorted({0, width} | {min(max(e + k, 0), width)
+                                     for e in range(0, width + 1, 4)
+                                     for k in (-1, 0, 1)})
+        lens = np.repeat(np.array(edges, np.int32), 2)
+        mat = ALPHA[rng.integers(0, 4, size=(len(lens), width))]
+        tail = np.arange(width)[None, :] >= lens[:, None]
+        mat[tail] = 1 if pad_valid else 0
+        bad = rng.integers(0, width, size=len(lens))
+        mat[0::2][np.arange(len(lens) // 2), bad[0::2]] = ord("N")
+        x = np.ascontiguousarray(mat).view(np.uint32)
+        words_t, ok_t = tb.pack_and_validate_plain(
+            from_numpy_u32(x), torch.from_numpy(lens), pad_valid)
+        words_j, ok_j = jb.pack_and_validate_u32(x, lens, pad_valid=pad_valid)
+        _assert_pack_equal(words_t, ok_t, words_j, ok_j)
+        # Rows with no bad byte before their length are ok in both.
+        assert ok_t[1::2].all()
+        # pad_valid reads the tail too, where a bad byte also fails.
+        want_bad = (bad[0::2] < lens[0::2]) | pad_valid
+        np.testing.assert_array_equal(~ok_t[0::2].numpy(), want_bad)
+
     def test_bloom_per_byte_value(self):
         # One probe byte after 'A': ok iff the reference bloom passes it.
         mat = np.zeros((256, 16), np.uint8)
@@ -130,7 +159,7 @@ class TestPackValidate:
             tb.pack_and_validate_u32(torch.zeros((2, 6), dtype=torch.int32),
                                      torch.zeros(2, dtype=torch.int32))
 
-    @pytest.mark.parametrize("w4", [8, 24, 256])
+    @pytest.mark.parametrize("w4", [4, 8, 12, 20, 24, 40, 256])
     def test_kernel_matches_plain_on_card(self, cuda, w4):
         mat, lens = _probe_rows(w4, seed=w4 + 1)
         x = from_numpy_u32(mat.view(np.uint32)).to(cuda)

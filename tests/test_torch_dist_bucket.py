@@ -157,6 +157,98 @@ def test_plain_send_buffers_match_loop(case, d):
     assert got[3].dtype == torch.int32 and got[3].dim() == 0
 
 
+def _rows_150nt(seed, n, keys):
+    """File 2's layout at a small n: 150-nt reads in the 64-lane bucket
+    (lanes past 10 zero), drawn from `keys` distinct keys (n: all
+    distinct)."""
+    rng = np.random.default_rng(seed)
+    pool = np.zeros((keys, 64), np.uint32)
+    pool[:, :10] = rng.integers(0, 2**32, size=(keys, 10), dtype=np.uint64)
+    pool[:, 9] &= 0x3FFFFF          # 150 nt: 6 codes in the last lane
+    words = pool[rng.integers(0, keys, size=n)] if keys < n else pool
+    return np.ascontiguousarray(words), np.full(n, 150, np.int32)
+
+
+@pytest.mark.parametrize("pre_dedup", [False, True])
+@pytest.mark.parametrize("keys", [60, 400])
+def test_plain_send_buffers_w64_one_rank_match_jax(keys, pre_dedup):
+    """What the main path gives K10 at one rank on file 2's words: W = 64,
+    D = 1, capacity factor 0.25, raw (tier 1) or pre-deduped (tier 2).
+    The send buffers equal the loop over JAX's hash exactly (pre-deduped
+    rows taken from JAX's unique_count, so both see one row order), and
+    the one-rank exchange matches JAX's count_sharded_bucketed: the same
+    overflow flag and, when it fits, the same table (row-sorted: the
+    packages order a 64-lane table differently)."""
+    from shortseq_tpu.count.device import unique_count as jax_unique_count
+
+    n, d, factor = 400, 1, 0.25
+    words, lengths = _rows_150nt(keys, n, keys)
+    weights = np.ones(n, np.int32)
+    if pre_dedup:
+        j = jax_unique_count(jnp.asarray(words), jnp.asarray(lengths),
+                             jnp.asarray(weights))
+        words, lengths, weights = (np.asarray(x) for x in j[:3])
+        assert (lengths == PAD_LENGTH).sum() == n - keys
+    cap = tdc.bucket_capacity(n, d, factor)
+    got = tdc.bucket_send_buffers_plain(*_t(words, lengths, weights), d, cap)
+    want = _reference_send(words, lengths, weights, d, cap)
+    np.testing.assert_array_equal(got[0].numpy().view(np.uint32), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    assert int(got[3]) == want[3] == int((keys if pre_dedup else n) > cap)
+
+    raw_words, raw_lengths = _rows_150nt(keys, n, keys)
+    j_w, j_l, j_c, j_n, j_over = jax_bucketed(
+        jax_mesh(jax.devices()[:1]), factor, replicate=False,
+        pre_dedup=pre_dedup)(jnp.asarray(raw_words), jnp.asarray(raw_lengths),
+                             jnp.asarray(np.ones(n, np.int32)))
+    assert int(j_over) == int(got[3])
+    if int(j_over):
+        return
+    u_w, u_l, u_c, u_n = unique_count(*got[:3])
+    assert int(u_n) == int(j_n) == keys
+
+    def rows(w, ln, c):
+        w = np.asarray(w).view(np.uint32)
+        live = np.asarray(ln) != PAD_LENGTH
+        return sorted(zip(map(tuple, w[live]), np.asarray(ln)[live],
+                          np.asarray(c)[live]))
+
+    assert rows(u_w.numpy(), u_l.numpy(), u_c.numpy()) == rows(j_w, j_l, j_c)
+
+
+@pytest.mark.parametrize("w,vec,tile", [(1, 4, 4096), (2, 8, 4096),
+                                        (5, 4, 819), (6, 8, 1365),
+                                        (64, 16, 256), (256, 16, 64)])
+def test_k10_plan_tiles(w, vec, tile):
+    """One-pass tiles hold 4096 row pieces, the widest piece that the row
+    and the alignment allow."""
+    plan = tdc.k10_plan(10_000, w, 3, 16)
+    assert plan.one_pass and (plan.vec_bytes, plan.tile_rows) == (vec, tile)
+    assert plan.n_tiles == -(-10_000 // tile)
+    assert plan.scratch_ints == plan.zeroed == 2 + 3 + 3 * plan.n_tiles
+    if w % 2 == 0:   # rows at 4-byte alignment take 4-byte pieces
+        assert tdc.k10_plan(10_000, w, 3, 4).vec_bytes == 4
+
+
+@pytest.mark.parametrize("d,one_pass", [(1024, True), (1025, False),
+                                        (65536, False)])
+def test_k10_plan_bucket_limit(d, one_pass):
+    plan = tdc.k10_plan(50_000, 2, d, 16)
+    assert plan.one_pass == one_pass
+    if not one_pass:
+        assert plan.zeroed == d * plan.n_tiles
+        assert plan.scratch_ints == d * plan.n_tiles + 2 * 50_000 + d
+
+
+def test_k10_plan_budget_grows_three_launch_tiles(monkeypatch):
+    monkeypatch.setattr(tdc, "_HISTOGRAM_INTS", 64)
+    plan = tdc.k10_plan(40_971, 2, 17, 16)
+    assert not plan.one_pass and plan.tile_rows == 16384
+    assert 17 * plan.n_tiles <= 64
+    assert tdc.k10_plan(4000, 2, 17, 16).one_pass   # 1 tile x 17 fits
+
+
 def _exchange(words, lengths, weights, d, factor, pre_dedup):
     """The port's tier on d emulated ranks: each rank's send buffers, the
     exchange, and unique_count per receiving rank."""
@@ -238,17 +330,23 @@ def test_single_rank_bucketed_matches_jax(replicate):
 
 
 def _card_cases():
-    tile = tdc.BUCKET_TILE_ROWS
+    tile2 = tdc.k10_plan(1, 2, 1, 16).tile_rows
+    tile64 = tdc.k10_plan(1, 64, 1, 16).tile_rows
     cases = []
-    for d, n, w in ((1, tile - 1, 2), (2, tile, 2), (3, tile + 1, 2),
-                    (6, 3 * tile + 5, 5), (8, 4 * tile, 64), (3, 37, 1)):
+    for d, n, w in ((1, tile2 - 1, 2), (2, tile2, 2), (3, tile2 + 1, 2),
+                    (2, 9 * tile2 + 3, 2), (6, 3 * tile2 + 5, 5),
+                    (8, 4 * tile64, 64), (1, tile64 + 1, 64), (3, 37, 1),
+                    (1024, 3 * tile2 + 1, 2), (1025, 3 * tile2 + 1, 2)):
         cases.append((f"d={d} n={n} w={w}", *_rows(n + d, n, w,
                                                    pad_every=3), d, None))
-    keys = _one_bucket_keys(0, 3 * tile, 6)
+    keys = _one_bucket_keys(0, 3 * tile2 // 2, 6)
     for extra, name in ((0, "cap rows fit"), (1, "cap + 1 overflow")):
         lengths = np.full(len(keys), 20, np.int32)
         cases.append((f"one bucket, {name}", keys, lengths, 6,
                       len(keys) - extra))
+    for d in (1, 4):
+        cases.append((f"n = 1, d = {d}", np.array([[3, 4]], np.uint32),
+                      np.array([9], np.int32), d, 1))
     cases.append(("n = 0", np.zeros((0, 2), np.uint32),
                   np.zeros(0, np.int32), 4, 0))
     return cases
@@ -265,7 +363,16 @@ def test_kernel_matches_plain_on_card(cuda, monkeypatch):
         torch.cuda.synchronize()
         for g, w_ in zip(got, want):
             assert torch.equal(g, w_), name
-    # A histogram budget of 64 ints grows the tile past 1024 rows.
+    # Pre-deduped rows: live rows, then PAD rows, as tier 2 hands them.
+    words, lengths = _rows_150nt(1, 20_000, 3000)
+    args = [x.to(cuda) for x in _t(words, lengths)]
+    table = unique_count(*args)[:3]
+    for d, factor in ((1, 0.25), (3, 2.0)):
+        cap = tdc.bucket_capacity(20_000, d, factor)
+        got = tdc.bucket_send_buffers(*table, d, cap)
+        want = tdc.bucket_send_buffers_plain(*table, d, cap)
+        assert all(torch.equal(g, w_) for g, w_ in zip(got, want)), d
+    # A histogram budget of 64 ints: three launches, tiles past 1024 rows.
     monkeypatch.setattr(tdc, "_HISTOGRAM_INTS", 64)
     words, lengths = _rows(9, 5 * tdc.BUCKET_TILE_ROWS + 3, 2, pad_every=5)
     args = [x.to(cuda) for x in _t(words, lengths)]

@@ -127,7 +127,7 @@ def test_pack_and_validate_u8_matches_jax(w4):
 # --- on the card ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("w4", [4, 8, 24, 40, 256])
+@pytest.mark.parametrize("w4", [4, 8, 12, 20, 24, 36, 40, 256])
 def test_pack_only_kernel_matches_plain_on_card(cuda, w4):
     mat, _ = _probe_rows(w4, seed=w4 + 11)
     x = from_numpy_u32(mat.view(np.uint32)).to(cuda)
