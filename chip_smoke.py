@@ -23,9 +23,14 @@ Phases, one line each; any failure raises and exits nonzero:
              and its wrapper's host time a call; B at
              [2688] x [102144] W = 2, [4096] x [131072] W = 10 and
              [512] x [16384] W = 6 and 64, each also against the one-hot
-             product; C on B's band slab at k = 16 and 128 and on the
-             overflow tier's [256] x [7424] slab of phase umi_scale's fan
-             UMIs at k = 128 (its main-path shape); H on the band
+             product; C (kernel_c) on B's band slab at k = 16 and 128 and
+             on the overflow tier's [256] and [706] x [7424] slabs of phase
+             umi_scale's fan UMIs at k = 128 (706 rows: its main-path
+             batch), each also at 1, 2, 4 and 8 column segments a row, and
+             exact on 96 edge cases (c_edge_slab: U = 1001, 1003, 1004,
+             7424; k = 1, 16, 128; rows with no hit, exactly k, k + 5
+             ending late; own and pad columns; a slab off 16-byte
+             alignment), with its wrapper's host time; H on the band
              at k = 16 and 128 (also against B + C) and at the main path's
              [100000] x [102144] (also against B + C over 38 bands); for
              B, C and H also each launch's device time (torch.profiler),
@@ -37,8 +42,10 @@ Phases, one line each; any failure raises and exits nonzero:
              launches' device times (torch.profiler), the sort and the
              whole unique_count; kernel A's pack-only mode at [2M, 40]
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
-             words), E at [2M, 10], F static (8, 100) and ragged
-             at [2M, 10], G at [2M, 10] and [262144, 64], and the one-hot
+             words), E at [2M, 10], F (kernel_f) static (8, 100) (one
+             launch a call) and ragged at [2M, 10] with its wrapper's host
+             time and 216 exact edge cases (f_edge_cases), G at [2M, 10]
+             and [262144, 64], each with its device time, and the one-hot
              pairwise product against B at [512] x [16384], W = 1, 2, 10,
              64
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
@@ -47,8 +54,8 @@ Phases, one line each; any failure raises and exits nonzero:
              neighbour lists against the plain pairwise check, a
              5,000-unique problem identical to device="cpu", and 8,200
              UMIs (7,400 unique) in error fans at threshold 2 (rows over
-             the main pass's cap, so the overflow tier runs B + C)
-             identical to device="cpu"
+             the main pass's cap, so the overflow tier runs B + C in
+             706-row batches, fetched once) identical to device="cpu"
   umi_cli    1,000,000 reads (100,000 molecules, 8-nt UMI, 20-nt insert,
              2% UMI errors) through `python -m shortseq_torch umi` as a
              subprocess, and through dedup_reads in this process: molecule
@@ -419,8 +426,7 @@ def phase_kernels(torch, results):
 def kernel_checks(torch, results, lines):
     import numpy as np
 
-    from shortseq_torch.ops import bitpack, hamming, pairwise
-    from shortseq_torch.ops.lanes import from_numpy_u32
+    from shortseq_torch.ops import hamming, pairwise
     from shortseq_torch.umi import dedup
 
     timer = Timer(torch)
@@ -435,22 +441,8 @@ def kernel_checks(torch, results, lines):
     # PackedBatch.pairwise's 4096-row block against 131072 rows of 150 nt
     # (W = 10; plain in 256-row chunks, whose broadcast would need 21 GB);
     # the calibration shape [512] x [16384] at W = 6 and 64.
-    u_pad, block, lo = 102144, 2688, 2688 * 7
-    umis = np.frombuffer(b"".join(rand_umis(u_pad, 12, seed=2)),
-                         np.uint8).reshape(u_pad, 12)
-    mat = np.zeros((u_pad, 32), np.uint8)
-    mat[:, :12] = umis
-    lens = np.full(u_pad, 12, np.int32)
-    words, ok = bitpack.pack_and_validate_rows(mat.view(np.uint32), lens,
-                                               "cuda")
-    assert bool(ok.all())
-    lens_d = torch.from_numpy(lens).cuda()
-    lens_d[-500:] = -1                       # pad rows, as the slice pads
-    # Two random groups and threshold 3 give rows ~20 neighbours, so the
-    # k = 16 cap truncates.
-    gids_d = torch.from_numpy(
-        rng.integers(0, 2, size=u_pad).astype(np.int32)).cuda()
-    rows_d = torch.arange(u_pad, dtype=torch.int32, device="cuda")
+    words, lens_d, gids_d, rows_d = umi_band(torch, rng)
+    u_pad, block, lo = len(words), BAND_ROWS, BAND_LO
     a = words[lo:lo + block]
     slab = torch.empty((block, u_pad), dtype=torch.int32, device="cuda")
 
@@ -493,55 +485,10 @@ def kernel_checks(torch, results, lines):
         max_abs_err=max(errs + [err]), ms=t[0], plain_ms=t[1],
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=t[2])
 
-    # C: neighbour extraction on B's slab of the band.
-    pairwise.hamming_pairwise_tiled(a, words, out=slab)
+    results["neighbor_extract"] = kernel_c(
+        torch, timer, lines, (words, lens_d, gids_d, rows_d), slab)
     sl = slice(lo, lo + block)
     args = (slab, lens_d[sl], gids_d[sl], rows_d[sl], lens_d, gids_d, 3)
-    errs = []
-    for k in (16, 128):
-        got = dedup.neighbor_extract(*args, k)
-        want = dedup.neighbor_extract_plain(*args, k)
-        errs.append(exact(f"C k={k}", got, want))
-        over = int((want[1] > k).sum())
-        ms, plain_ms = timer([lambda: dedup.neighbor_extract(*args, k),
-                              lambda: dedup.neighbor_extract_plain(*args, k)])
-        bnd = bound(args[:6], want)
-        split = launch_split(torch, lambda: dedup.neighbor_extract(*args, k),
-                             ("neighbor_extract",))
-        lines.append(f"C [2688,102144] k={k} ({over} rows over k): "
-                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms; "
-                     f"{bound_text(bnd)}; {split}")
-    # C at the main path's slab: one 256-row batch of the overflow tier on
-    # phase umi_scale's 7,400 unique fan UMIs against all 7,424 padded
-    # columns, threshold 2, k = 128 (_OVERFLOW_K), 29 such launches a run.
-    fans = list(dict.fromkeys(fan_umis(200, 12, seed=5)))
-    fw, fl = dedup._pack_validate_umis(fans, "cuda")
-    f_u = len(fans)
-    f_pad = -(-f_u // 128) * 128
-    f_words = torch.zeros((f_pad, 2), dtype=torch.int32, device="cuda")
-    f_words[:f_u] = fw
-    f_lens = torch.full((f_pad,), -1, dtype=torch.int32, device="cuda")
-    f_lens[:f_u] = torch.from_numpy(fl).cuda()
-    f_gids = torch.zeros(f_pad, dtype=torch.int32, device="cuda")
-    f_slab = pairwise.hamming_pairwise_tiled(f_words[:256], f_words)
-    fargs = (f_slab, f_lens[:256], f_gids[:256], rows_d[:256], f_lens, f_gids,
-             2, 128)
-    want = dedup.neighbor_extract_plain(*fargs)
-    errs.append(exact(f"C [256,{f_pad}] k=128",
-                      dedup.neighbor_extract(*fargs), want))
-    ms, plain_ms = timer([lambda: dedup.neighbor_extract(*fargs),
-                          lambda: dedup.neighbor_extract_plain(*fargs)])
-    bnd = bound(fargs[:6], want)
-    split = launch_split(torch, lambda: dedup.neighbor_extract(*fargs),
-                         ("neighbor_extract",))
-    lines.append(f"C [256,{f_pad}] k=128 threshold 2 (the overflow tier's "
-                 f"slab on {f_u} fan UMIs): {ms:.4f} ms, plain {plain_ms:.4f} "
-                 f"ms; {bound_text(bnd)}; {split}")
-    c_main = (ms, plain_ms, bnd)
-    results["neighbor_extract"] = dict(
-        replaces="shortseq_tpu/umi/dedup.py:180",
-        max_abs_err=max(errs), ms=c_main[0], plain_ms=c_main[1],
-        bound_ms=c_main[2][0], bound_by=c_main[2][1], library_ms=None)
 
     # H: fused neighbour lists.  The band at k = 16 and 128, against its
     # plain version and against B + C on the same band; then the main
@@ -692,6 +639,437 @@ def kernel_a(torch, timer, lines):
     return dict(replaces="shortseq_tpu/ops/bitpack.py:330",
                 max_abs_err=max(errs), ms=main[0], plain_ms=main[1],
                 bound_ms=main[2][0], bound_by=main[2][1], library_ms=None)
+
+
+BAND_ROWS, BAND_LO = 2688, 2688 * 7   # the UMI band of B, C and H
+
+
+def umi_band(torch, rng):
+    """102,144 random 12-nt UMIs packed on the card (kernel A), the last
+    500 of them pad rows (length -1, as _neighbor_lists pads), in two
+    random groups: threshold 3 then gives rows ~20 neighbours, so a
+    k = 16 cap truncates.  Returns (words, lengths, gids, row ids)."""
+    import numpy as np
+
+    from shortseq_torch.ops import bitpack
+
+    u_pad = 102144
+    umis = np.frombuffer(b"".join(rand_umis(u_pad, 12, seed=2)),
+                         np.uint8).reshape(u_pad, 12)
+    mat = np.zeros((u_pad, 32), np.uint8)
+    mat[:, :12] = umis
+    lens = np.full(u_pad, 12, np.int32)
+    words, ok = bitpack.pack_and_validate_rows(mat.view(np.uint32), lens,
+                                               "cuda")
+    assert bool(ok.all())
+    lens_d = torch.from_numpy(lens).cuda()
+    lens_d[-500:] = -1
+    gids_d = torch.from_numpy(
+        rng.integers(0, 2, size=u_pad).astype(np.int32)).cuda()
+    rows_d = torch.arange(u_pad, dtype=torch.int32, device="cuda")
+    return words, lens_d, gids_d, rows_d
+
+
+def c_edge_slab(u, k, seed, threshold=1):
+    """Kernel C's edge rows on a [16, u] slab (numpy int32: dist, a_len,
+    a_gid, a_rows, len, gid): row 0 has no hit, row 1 exactly k spread
+    over the row, row 2 k + 5 at the row's end (the k-th hit in a late
+    segment), row 3 a hit at the first and the last column, row 4 every
+    matching column, the rest random.  Every row's own column would be a
+    hit, and the own columns spread over the row (one in every segment);
+    about 10% of the columns are pad (length -1, distance 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b = 16
+    lengths = np.where(rng.random(u) < 0.1, -1, 12).astype(np.int32)
+    gids = rng.integers(0, 2, size=u).astype(np.int32)
+    a_rows = np.linspace(0, u - 1, b).astype(np.int32)
+    lengths[a_rows] = 12
+    gids[[0, u - 1]] = gids[a_rows[3]]
+    a_len = np.full(b, 12, np.int32)
+    a_gid = gids[a_rows]
+    dist = rng.integers(0, 4, size=(b, u)).astype(np.int32)
+    for r in range(5):
+        ok = (lengths == 12) & (gids == a_gid[r])
+        ok[a_rows[r]] = False
+        cols = np.flatnonzero(ok)
+        dist[r] = threshold + 1
+        if r == 1:
+            dist[r, cols[np.linspace(0, len(cols) - 1, k).astype(int)]] = 0
+        elif r == 2:
+            dist[r, cols[-(k + 5):]] = threshold
+        elif r == 3:
+            dist[r, [0, u - 1]] = 0
+        elif r == 4:
+            dist[r, cols] = 0
+    dist[:, lengths < 0] = 0
+    dist[np.arange(b), a_rows] = 0
+    return dist, a_len, a_gid, a_rows, lengths, gids
+
+
+def fan_words(torch):
+    """Phase umi_scale's 7,400 unique fan UMIs (threshold 2: every row
+    over the main pass's cap of 16), packed on the card: ([U, 2] words,
+    [U] numpy lengths)."""
+    from shortseq_torch.umi import dedup
+
+    fans = list(dict.fromkeys(fan_umis(200, 12, seed=5)))
+    return dedup._pack_validate_umis(fans, "cuda")
+
+
+def kernel_c(torch, timer, lines, band, slab=None, extras=True):
+    """Kernel C against its plain version, exact, timed (CUDA events, all
+    before any torch.profiler run, then each case's device time): on B's
+    slab of the UMI band at k = 16 and 128 (threshold 3; rows over k), and
+    at the overflow tier's slabs on phase umi_scale's 7,400 unique fan
+    UMIs (threshold 2, k = 128): batches of 256 rows, of 706 (an L2-sized
+    21 MB slab) and of the rows a batch of the tier takes now (the JSON
+    line's shape).  With `extras`, also c_edge_slab's rows at U = 1001,
+    1003, 1004 and 7424, k = 1, 16 and 128, at 0 (the kernel's choice), 1,
+    3 and 8 segments a row, each on an aligned slab and one off 16-byte
+    alignment, all exact; each timed shape's device time at 1, 2, 4 and
+    8 segments a row; and kernel H at k = 128 over every fan row (the
+    tier's rows in one H launch, W = 2 only), for comparison."""
+    from shortseq_torch.ops import pairwise
+    from shortseq_torch.umi import dedup
+
+    words, lens_d, gids_d, rows_d = band
+    u_pad, block, lo = len(words), BAND_ROWS, BAND_LO
+    if slab is None:
+        slab = torch.empty((block, u_pad), dtype=torch.int32, device="cuda")
+    pairwise.hamming_pairwise_tiled(words[lo:lo + block], words, out=slab)
+    sl = slice(lo, lo + block)
+    errs, timed = [], []
+
+    def segs_call(s, args, k):
+        dedup._EXTRACT_SEGS = s
+        try:
+            return dedup.neighbor_extract(*args, k)
+        finally:
+            dedup._EXTRACT_SEGS = 0
+
+    def case(name, args, k):
+        got = dedup.neighbor_extract(*args, k)
+        want = dedup.neighbor_extract_plain(*args, k)
+        errs.append(exact(f"C {name} k={k}", got, want))
+        ms, plain_ms = timer([lambda: dedup.neighbor_extract(*args, k),
+                              lambda: dedup.neighbor_extract_plain(*args, k)])
+        timed.append((name, args, k, int((want[1] > k).sum()), ms, plain_ms,
+                      bound(args[:6], want)))
+
+    band_args = (slab, lens_d[sl], gids_d[sl], rows_d[sl], lens_d, gids_d, 3)
+    for k in (16, 128):
+        case(f"[{block},{u_pad}]", band_args, k)
+
+    fw, fl = fan_words(torch)
+    f_u = len(fl)
+    f_pad = -(-f_u // 128) * 128
+    f_words = torch.zeros((f_pad, 2), dtype=torch.int32, device="cuda")
+    f_words[:f_u] = fw
+    f_lens = torch.full((f_pad,), -1, dtype=torch.int32, device="cuda")
+    f_lens[:f_u] = torch.from_numpy(fl).cuda()
+    f_gids = torch.zeros(f_pad, dtype=torch.int32, device="cuda")
+    tier_rows = min(f_u, max(dedup._DENSE_ROWS_BATCH,
+                             getattr(dedup, "_OVERFLOW_SLAB", 0) // f_pad))
+    main = None
+    for rows in sorted({256, (5 << 20) // f_pad, tier_rows}):
+        now = ", its batch now" if rows == tier_rows else ""
+        case(f"[{rows},{f_pad}] threshold 2 (the overflow tier's slab on "
+             f"{f_u} fan UMIs{now})",
+             (pairwise.hamming_pairwise_tiled(f_words[:rows], f_words),
+              f_lens[:rows], f_gids[:rows], rows_d[:rows], f_lens, f_gids, 2),
+             128)
+        if rows == tier_rows:
+            main = timed[-1][4:]
+
+    if extras:
+        # Kernel H at the tier's cap over every fan row: what the tier's
+        # B + C launches would cost as one H launch (W = 2 only).
+        hargs = (f_words[:f_u], f_lens[:f_u], f_gids[:f_u], rows_d[:f_u],
+                 f_words, f_lens, f_gids, 2, 128)
+        got = dedup.neighbor_lists_fused(*hargs)
+        errs.append(exact(f"H [{f_u},{f_pad}] k=128", got,
+                          dedup.neighbor_lists_fused_plain(*hargs)))
+        h_ms = timer([lambda: dedup.neighbor_lists_fused(*hargs)])[0]
+        h_line = (f"H [{f_u},{f_pad}] k=128 threshold 2 (every fan row at the "
+                  f"tier's cap, for comparison): {h_ms:.4f} ms; ")
+
+    for name, args, k, over, ms, plain_ms, bnd in timed:
+        split = launch_split(torch, lambda: dedup.neighbor_extract(*args, k),
+                             ("neighbor_extract",))
+        line = (f"C {name} k={k} ({over} rows over k): {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms; {bound_text(bnd)}; {split}")
+        if extras:
+            line += "; by segments a row: " + "; ".join(
+                f"{s}: " + launch_split(
+                    torch, lambda s=s: segs_call(s, args, k),
+                    ("neighbor_extract",)).rsplit(": ", 1)[-1]
+                for s in (1, 2, 4, 8))
+        lines.append(line)
+    del timed
+    if extras:
+        lines.append(h_line + launch_split(
+            torch, lambda: dedup.neighbor_lists_fused(*hargs),
+            ("neighbor_lists", "neighbor_merge")))
+    small = [t[:8] for t in band_args[1:4]]
+    us = host_us(torch, lambda: dedup.neighbor_extract(
+        slab[:8], *small, lens_d, gids_d, 3, 128))
+    lines.append(f"C wrapper host time at [8,{u_pad}], k = 128: {us:.1f} us "
+                 "a call")
+
+    if extras:
+        n = 0
+        for u in (1001, 1003, 1004, 7424):
+            for k in (1, 16, 128):
+                host = c_edge_slab(u, k, seed=u + k)
+                t = [torch.from_numpy(x).cuda() for x in host]
+                want = dedup.neighbor_extract_plain(*t, 1, k)
+                if [int(x) for x in want[1][:4]] != [0, k, k + 5, 2]:
+                    raise AssertionError(f"C edge slab U={u} k={k}: rows "
+                                         f"{want[1][:4].tolist()}")
+                off = torch.empty(host[0].size + 1, dtype=torch.int32,
+                                  device="cuda")[1:].view(host[0].shape)
+                off.copy_(t[0])
+                for s in (0, 1, 3, 8):
+                    for dist in (t[0], off):
+                        errs.append(exact(
+                            f"C edge U={u} k={k} segs={s}",
+                            segs_call(s, (dist, *t[1:], 1), k), want))
+                        n += 1
+        lines.append(f"C: {n} edge cases exact (U = 1001, 1003, 1004, 7424; "
+                     "k = 1, 16, 128; 0, 1, 3, 8 segments a row; rows with no "
+                     "hit, exactly k, k + 5 ending late, first and last "
+                     "column, every column; own columns in every segment; pad "
+                     "columns; the slab off 16-byte alignment)")
+    return dict(replaces="shortseq_tpu/umi/dedup.py:180",
+                max_abs_err=max(errs), ms=main[0], plain_ms=main[1],
+                bound_ms=main[2][0], bound_by=main[2][1], library_ms=None)
+
+
+def load_other(root):
+    """Another checkout's shortseq_torch (e.g. the parent commit unpacked
+    into build/parent/), imported beside this one as shortseq_torch_other:
+    the package's imports of itself are all relative, and its kernels
+    build into that checkout's own build directory."""
+    import importlib.util
+
+    pkg = Path(root).resolve() / "shortseq_torch"
+    spec = importlib.util.spec_from_file_location(
+        "shortseq_torch_other", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def overflow_tier(torch, lines, extras=True, reps=11, other=None):
+    """_neighbor_lists on phase umi_scale's 7,400 unique fan UMIs at
+    threshold 2 (kernel H, then every row through the overflow tier's B +
+    C): its wall by host clock and CUDA events (median of `reps` calls),
+    its B and C launches and its host fetches (.cpu() calls) in one call.
+    With `extras` the tier is also taken at 256-row batches and at one
+    batch of every row; with `other` (a checkout's root, see load_other)
+    that checkout's tier too.  All settings run in turns within each
+    repeat, each list equal to the first's (with `extras`, and to
+    device="cpu"), and with `extras` each setting's B and C device time a
+    launch (torch.profiler, after every wall)."""
+    import importlib
+
+    import numpy as np
+
+    from shortseq_torch.ops import pairwise
+    from shortseq_torch.umi import dedup
+
+    words, lengths = fan_words(torch)
+    settings = {"its default batches": (dedup, pairwise, None)}
+    if extras:
+        settings.update({"256-row batches": (dedup, pairwise, 0),
+                         "one batch": (dedup, pairwise, 1 << 40)})
+    if other is not None:
+        pkg = load_other(other).__name__
+        settings[f"the tree at {other}"] = (
+            importlib.import_module(pkg + ".umi.dedup"),
+            importlib.import_module(pkg + ".ops.pairwise"), None)
+    real_cpu = torch.Tensor.cpu
+    fetches = [0]
+
+    def counted_cpu(self, *a, **k):
+        fetches[0] += 1
+        return real_cpu(self, *a, **k)
+
+    def run(mod, budget):
+        base = getattr(mod, "_OVERFLOW_SLAB", None)
+        if budget is not None:
+            mod._OVERFLOW_SLAB = budget
+        try:
+            return mod._neighbor_lists(words, lengths, 2, device="cuda")
+        finally:
+            if base is not None:
+                mod._OVERFLOW_SLAB = base
+
+    counts, lists = {}, {}
+    for name, (mod, pw, budget) in settings.items():
+        lists[name] = run(mod, budget)
+        b0 = pw.hamming_pairwise_tiled.launches
+        c0 = mod.neighbor_extract.launches
+        fetches[0] = 0
+        torch.Tensor.cpu = counted_cpu
+        try:
+            run(mod, budget)
+        finally:
+            torch.Tensor.cpu = real_cpu
+        counts[name] = (pw.hamming_pairwise_tiled.launches - b0,
+                        mod.neighbor_extract.launches - c0, fetches[0])
+    walls = {name: ([], []) for name in settings}
+    for _ in range(reps):
+        for name, (mod, _, budget) in settings.items():
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            run(mod, budget)
+            end.record()
+            torch.cuda.synchronize()
+            walls[name][0].append((time.perf_counter() - t0) * 1e3)
+            walls[name][1].append(start.elapsed_time(end))
+    # The plain version on the CPU last: its threads would slow the walls.
+    want = dedup._neighbor_lists(words.cpu(), lengths, 2, device="cpu") \
+        if extras else next(iter(lists.values()))
+    for name, got in lists.items():
+        if len(got) != len(want) or not all(
+                np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"overflow tier ({name}) differs")
+    for name, (mod, _, budget) in settings.items():
+        b, c, f = counts[name]
+        host, ev = walls[name]
+        line = (f"overflow tier ({name}), _neighbor_lists on {len(words)} fan "
+                f"UMIs at threshold 2: wall {statistics.median(host):.3f} ms "
+                f"(host clock; quartiles {quartiles(host)}), "
+                f"{statistics.median(ev):.3f} ms (CUDA events), {reps} calls "
+                f"in turns; B {b} and C {c} launches, {f} .cpu() fetches a "
+                "call (kernel H's included); lists equal")
+        if extras:
+            line += "; " + launch_split(
+                torch, lambda mod=mod, budget=budget: run(mod, budget),
+                ("pairwise", "neighbor_extract"), runs=1)
+        lines.append(line)
+
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return f"{q[0]:.3f}-{q[2]:.3f}"
+
+
+def kernel_f(torch, timer, lines, words, rng, extras=True):
+    """Kernel F against its plain version at the batch phase's shapes
+    ([2M,10] words of 150 nt): static (8, 100) (trim_words: a scalar start
+    and length; its bound counts the source lanes the output needs, 0-7
+    of 10) and ragged (starts 0-40, lengths 60-150; its bound counts every
+    lane and the per-row starts and lengths), each exact and timed by
+    CUDA events (both before any torch.profiler run) and torch.profiler,
+    with the
+    launches one call makes (the wrapper's count, and the profiler's trim
+    and fill kernels).  With `extras`, also the edge cases of
+    f_edge_cases, exact.  Returns the static case's JSON entry."""
+    import numpy as np
+
+    from shortseq_torch import batch
+
+    n = len(words)
+    lens = torch.full((n,), 150, dtype=torch.int32, device="cuda")
+    starts = torch.from_numpy(
+        rng.integers(0, 41, size=n).astype(np.int32)).cuda()
+    keep = torch.from_numpy(
+        rng.integers(60, 151, size=n).astype(np.int32)).cuda()
+    # The static case needs source lanes 8 // 16 .. 8 // 16 + 7 of each
+    # row (lanes 0-7 of 10), the ragged one every lane.
+    needed = n * min(words.shape[1], 8 // 16 + 7 + 1) * 4
+    cases = (("static (8, 100)", batch.trim_words, batch.trim_words_plain,
+              (words, lens, 8, 100, 7), [lens], needed),
+             ("ragged (starts 0-40, lengths 60-150)", batch.trim_words_ragged,
+              batch.trim_words_ragged_plain, (words, lens, starts, keep, 10),
+              [words, lens, starts, keep], 0))
+    errs, timed = [], []
+    for name, fn, plain, args, inputs, nbytes in cases:
+        want = plain(*args)
+        errs.append(exact(f"F {name} [2M,10]", fn(*args), want))
+        bnd = bound(inputs, want, nbytes=nbytes)
+        del want
+        before = batch.trim_words_ragged.launches
+        fn(*args)
+        calls = batch.trim_words_ragged.launches - before
+        timed.append((calls, bnd, *timer([lambda: fn(*args),
+                                          lambda: plain(*args)])))
+    for (name, fn, _, args, _, _), (calls, bnd, ms, plain_ms) in zip(
+            cases, timed):
+        split = launch_split(torch, lambda: fn(*args), ("trim", "fill"))
+        lines.append(f"F {name} [2M,10]: {ms:.4f} ms, plain {plain_ms:.4f} "
+                     f"ms; {bound_text(bnd)}; {calls} counted launch a call; "
+                     f"{split}")
+    small = (words[:1024], lens[:1024])
+    us = [host_us(torch, lambda fn=fn, a=a: fn(*small, *a))
+          for fn, a in ((batch.trim_words, (8, 100, 7)),
+                        (batch.trim_words_ragged,
+                         (starts[:1024], keep[:1024], 10)))]
+    lines.append(f"F wrapper host time at [1024,10]: static {us[0]:.1f} us "
+                 f"a call, ragged {us[1]:.1f} us a call")
+    if extras:
+        n_cases = 0
+        for name, got, want in f_edge_cases(torch, rng):
+            errs.append(exact(f"F {name}", got, want))
+            n_cases += 1
+        lines.append(f"F: {n_cases} edge cases exact (N = 1, 1001, 4097, 300 "
+                     "at W = 10, 10, 3, 64; starts 0, 15, 16, 17, 32 and past "
+                     "the row; length 0; out_w 1, W, W + 2; scalar, ragged and "
+                     "mixed; rows off 16-byte alignment)")
+    _, bnd, ms, plain_ms = timed[0]
+    return dict(source=SOURCE_BATCH, replaces="shortseq_tpu/batch.py:56",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+
+
+def f_edge_cases(torch, rng):
+    """Kernel F's edge cases: (name, kernel output, plain output) for
+    random words at N = 1, 1001, 4097, 300 (not multiples of a block's
+    rows) and W = 10, 10, 3, 64, each also as a row slice off 16-byte
+    alignment; static (start, length) with starts on and beside lane
+    edges and past every row, length 0, out_w 1, W and W + 2; ragged
+    starts and lengths, and one of them a scalar."""
+    import numpy as np
+
+    from shortseq_torch import batch
+
+    for n, w in ((1, 10), (1001, 10), (4097, 3), (300, 64)):
+        full = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n + 1, w),
+                                             dtype=np.int64)
+                                .astype(np.int32)).cuda()
+        lens = torch.from_numpy(rng.integers(0, 16 * w + 1, size=n + 1)
+                                .astype(np.int32)).cuda()
+        starts = torch.from_numpy(rng.integers(-3, 16 * w + 8, size=n)
+                                  .astype(np.int32)).cuda()
+        keep = torch.from_numpy(rng.integers(-2, 16 * w + 8, size=n)
+                                .astype(np.int32)).cuda()
+        for view, wd, ln in (("", full[:n], lens[:n]),
+                             (" off 16 B", full[1:], lens[1:])):
+            for out_w in (1, w, w + 2):
+                tag = f"[{n},{w}]{view} out_w={out_w}"
+                for s, k in ((0, 16 * w), (15, 100), (16, 0), (17, 40),
+                             (32, 1000), (16 * w + 3, 5)):
+                    yield (f"{tag} ({s}, {k})",
+                           batch.trim_words(wd, ln, s, k, out_w),
+                           batch.trim_words_plain(wd, ln, s, k, out_w))
+                for s, k in ((starts, keep), (17, keep), (starts, 40)):
+                    sp = s if isinstance(s, torch.Tensor) else \
+                        torch.full_like(keep, s)
+                    kp = k if isinstance(k, torch.Tensor) else \
+                        torch.full_like(keep, k)
+                    yield (f"{tag} ragged",
+                           batch.trim_words_ragged(wd, ln, s, k, out_w),
+                           batch.trim_words_ragged_plain(wd, ln, sp, kp,
+                                                         out_w))
 
 
 def d_edge_cases(tile):
@@ -878,14 +1256,14 @@ def kernel_d(torch, timer, rng, lines):
                 bound_ms=d_main[2][0], bound_by=d_main[2][1], library_ms=None)
 
 
-def batch_kernels(torch, timer, rng, lines):
-    """Kernel A's pack-only mode, E, F and G against their plain versions
-    at the batch phase's shapes (2M rows of 150 nt: 40 byte lanes, 10
-    packed lanes), G also at 64 lanes, and the one-hot pairwise product
-    against kernel B at the calibration shape."""
+def batch_kernels(torch, timer, rng, lines, extras=True):
+    """Kernel A's pack-only mode, E, F (kernel_f; `extras`: its edge
+    cases) and G against their plain versions at the batch
+    phase's shapes (2M rows of 150 nt: 40 byte lanes, 10 packed lanes),
+    each with its device time, G also at 64 lanes, and the one-hot
+    pairwise product against kernel B at the calibration shape."""
     import numpy as np
 
-    from shortseq_torch import batch
     from shortseq_torch.ops import bitpack, hamming, pairwise
     from shortseq_torch.ops.lanes import from_numpy_u32
 
@@ -928,34 +1306,14 @@ def batch_kernels(torch, timer, rng, lines):
                lambda: bitpack.unpack_ascii_plain(words)])
     bnd = bound([words], [want])
     del want
-    lines.append(f"E [2M,10]: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
+    split = launch_split(torch, lambda: bitpack.unpack_ascii(words),
+                         ("unpack",))
+    lines.append(f"E [2M,10]: {t[0]:.4f} ms, plain {t[1]:.4f} ms; {split}; "
                  + bound_text(bnd))
     entry("unpack_ascii", SOURCE_BATCH, "shortseq_tpu/ops/bitpack.py:148",
           [err], t, bnd)
 
-    lens = torch.full((n,), 150, dtype=torch.int32, device="cuda")
-    starts = torch.from_numpy(
-        rng.integers(0, 41, size=n).astype(np.int32)).cuda()
-    keep = torch.from_numpy(
-        rng.integers(60, 151, size=n).astype(np.int32)).cuda()
-    static = (words, lens, 8, 100, 7)
-    ragged = (words, lens, starts, keep, 10)
-    want = batch.trim_words_plain(*static)
-    bnd = bound(static[:2], want)
-    errs = [exact("F static (8, 100) [2M,10]", batch.trim_words(*static),
-                  want),
-            exact("F ragged [2M,10]", batch.trim_words_ragged(*ragged),
-                  batch.trim_words_ragged_plain(*ragged))]
-    t_static = timer([lambda: batch.trim_words(*static),
-                      lambda: batch.trim_words_plain(*static)])
-    t_ragged = timer([lambda: batch.trim_words_ragged(*ragged),
-                      lambda: batch.trim_words_ragged_plain(*ragged)])
-    lines.append(f"F static (8, 100) [2M,10]: {t_static[0]:.4f} ms, plain "
-                 f"{t_static[1]:.4f} ms; ragged (starts 0-40, lengths "
-                 f"60-150): {t_ragged[0]:.4f} ms, plain {t_ragged[1]:.4f} ms;"
-                 f" static {bound_text(bnd)}")
-    entry("trim_words", SOURCE_BATCH, "shortseq_tpu/batch.py:56", errs,
-          t_static, bnd)
+    out["trim_words"] = kernel_f(torch, timer, lines, words, rng, extras)
 
     errs, g_main = [], None
     other = words.roll(1, 0)
@@ -969,12 +1327,14 @@ def batch_kernels(torch, timer, rng, lines):
         t = timer([lambda: hamming.hamming_rows(a, b),
                    lambda: hamming.hamming_rows_plain(a, b)])
         bnd = bound([a, b], [want], popc=a.shape[0] * -(-a.shape[1] // 2))
+        split = launch_split(torch, lambda: hamming.hamming_rows(a, b),
+                             ("hamming_rows",))
         lines.append(f"G {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
-                     + bound_text(bnd))
+                     f"{split}; " + bound_text(bnd))
         g_main = g_main or (t, bnd)
     entry("hamming_rows", SOURCE_BATCH, "shortseq_tpu/ops/hamming.py:26",
           errs, *g_main)
-    del words, other, wide, lens, starts, keep
+    del words, other, wide
 
     for w in (1, 2, 10, 64):
         a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, w),
@@ -1247,10 +1607,47 @@ def a_and_k10(edges=True):
     timer, lines = Timer(torch), []
     with SmiSampler() as smi:
         kernel_a(torch, timer, lines)
-        batch_kernels(torch, timer, np.random.default_rng(0), lines)
+        batch_kernels(torch, timer, np.random.default_rng(0), lines, edges)
         kernel_k10(torch, timer, lines,
                    k10_synthetic(torch, np.random.default_rng(9)),
                    ("[10M,2]", 1, 2.0), edges)
+    for line in lines:
+        print("  " + line, flush=True)
+    print("  during the timings: " + smi.summary(), flush=True)
+
+
+def c_and_f(edges=True, other=None):
+    """Kernels C and F alone, on the card (about a minute with the
+    build): `python3 -c "import chip_smoke as cs; cs.c_and_f()"` from a
+    checkout's root.  The overflow tier as a whole (overflow_tier, timed
+    before any torch.profiler run), C at kernel_c's shapes, then
+    batch_kernels (A's pack-only mode, E, F and G at [2M,10], each with
+    its device time); with `edges`, C's and F's edge cases, C's segment
+    counts and the tier at other batch rows.  The host time of one small
+    torch op is taken before anything, after the tier and at the end.
+    Each line is printed.  Another checkout's package (e.g. the
+    parent commit unpacked by `git archive` into build/parent/) times the
+    same cases when this file is copied to its root and run with
+    edges=False; `other` (such a checkout's root) also runs that tree's
+    overflow tier in turns with this one's, in this process."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    timer, lines = Timer(torch), []
+    rng = np.random.default_rng(0)
+    x = torch.zeros(1, device="cuda")
+    probe = [host_us(torch, lambda: x.add_(1), 2000)]
+    with SmiSampler() as smi:
+        overflow_tier(torch, lines, edges, other=other)
+        probe.append(host_us(torch, lambda: x.add_(1), 2000))
+        kernel_c(torch, timer, lines, umi_band(torch, rng), extras=edges)
+        batch_kernels(torch, timer, rng, lines, edges)
+    probe.append(host_us(torch, lambda: x.add_(1), 2000))
+    lines.append("host time of one torch add_ on the card: "
+                 + ", ".join(f"{p:.1f} us" for p in probe)
+                 + " (before anything, after the tier, at the end)")
     for line in lines:
         print("  " + line, flush=True)
     print("  during the timings: " + smi.summary(), flush=True)

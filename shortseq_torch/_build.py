@@ -224,9 +224,9 @@ _CUDA_SIGNATURES = {
     # a, b, out, n, m, w, stream
     "ssq_pairwise_hamming": [_P, _P, _P, _I64, _I64, _I32, _P],
     # dist, a_len, a_gid, a_rows, len, gid, idx, cnt, rows, u,
-    # threshold, k, stream
+    # threshold, k, segs (0: the kernel's choice), stream
     "ssq_neighbor_extract": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                             _I32, _I32, _P],
+                             _I32, _I32, _I32, _P],
     # rows, u, k, sms -> column ranges of one ssq_neighbor_lists launch
     "ssq_neighbor_lists_splits": [_I64, _I64, _I32, _I32],
     # a_words, a_len, a_gid, a_rows, words, len, gid, sidx, scnt, idx,
@@ -242,8 +242,10 @@ _CUDA_SIGNATURES = {
     "ssq_group_tile_rows": [],
     # words, out, total (words), stream
     "ssq_unpack_ascii": [_P, _P, _I64, _P],
-    # words, lengths, starts, new_lengths, out, out_len, n, w, out_w, stream
-    "ssq_trim_words": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+    # words, lengths, starts (None: start), new_lengths (None: length),
+    # start, length, out, out_len, n, w, out_w, stream
+    "ssq_trim_words": [_P, _P, _P, _P, _I32, _I32, _P, _P, _I64, _I32, _I32,
+                       _P],
     # a, b, out, n, w, stream
     "ssq_hamming_rows": [_P, _P, _P, _I64, _I32, _P],
     # words, lengths, weights, scratch, send_words, send_lengths,

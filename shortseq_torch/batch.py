@@ -8,10 +8,9 @@ raises when there is no card, `device="cpu"` runs their plain versions.
 
 Trimming runs through kernel F (csrc/batch.cu): `trim_words` (one start
 and length for every row) and `trim_words_ragged` (per row) are one
-kernel, since a static start is the ragged form with the start broadcast.
-The JAX package compiled the static form with the start as a constant;
-PyTorch compiles nothing per shape, so the port has no reason to keep
-two.
+kernel.  A start or length given as a Python int reaches it as a scalar,
+as the JAX package's static `_trim_words` made it a constant, so no `[N]`
+tensor is built for it; per-row ones go as `[N]` int32 tensors.
 """
 
 from __future__ import annotations
@@ -94,42 +93,58 @@ def trim_words_ragged_plain(words, lengths, starts, new_lengths, out_w: int):
     return shifted & mask, new_len
 
 
+def _clamp_i32(value) -> int:
+    return max(-_INT32_MAX - 1, min(int(value), _INT32_MAX))
+
+
+def _full(n: int, value: int, device) -> torch.Tensor:
+    return torch.full((n,), _clamp_i32(value), dtype=torch.int32,
+                      device=device)
+
+
 def trim_words_ragged(words, lengths, starts, new_lengths, out_w: int):
     """Per-row subsequence on packed lanes (kernel F): `[N, W]` words,
-    `[N]` lengths, `[N]` starts (negative starts clamp to 0) and `[N]`
-    lengths wanted -> (`[N, out_w]` words, `[N]` lengths), tails zeroed.
-    A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version."""
+    `[N]` lengths, starts (negative starts clamp to 0) and lengths wanted
+    -> (`[N, out_w]` words, `[N]` lengths), tails zeroed.  `starts` and
+    `new_lengths` are each an `[N]` int32 tensor or one int for every row,
+    which the kernel takes as a scalar.  A CUDA tensor launches the
+    kernel; a CPU tensor takes the plain version."""
     n, w = words.shape
     if out_w < 1:
         raise ValueError("out_w must be >= 1")
-    for name, t in (("lengths", lengths), ("starts", starts),
-                    ("new_lengths", new_lengths)):
-        if tuple(t.shape) != (n,):
+    per_row = {"starts": starts, "new_lengths": new_lengths}
+    for name, t in (("lengths", lengths), *per_row.items()):
+        if (name == "lengths" or isinstance(t, torch.Tensor)) \
+                and tuple(t.shape) != (n,):
             raise ValueError(f"{name} must be [{n}], got {tuple(t.shape)}")
-    if words.device.type == "cpu":
+    dev = words.device
+    if dev.type == "cpu":
+        starts, new_lengths = (
+            t if isinstance(t, torch.Tensor) else _full(n, t, dev)
+            for t in per_row.values())
         return trim_words_ragged_plain(words, lengths, starts, new_lengths,
                                        out_w)
-    dev = words.device
     _build.check_operand(words, "words", torch.int32, 2, dev)
-    for name, t in (("lengths", lengths), ("starts", starts),
-                    ("new_lengths", new_lengths)):
-        _build.check_operand(t, name, torch.int32, 1, dev)
+    _build.check_operand(lengths, "lengths", torch.int32, 1, dev)
+    ptrs, scalars = [], []
+    for name, t in per_row.items():
+        if isinstance(t, torch.Tensor):
+            _build.check_operand(t, name, torch.int32, 1, dev)
+            ptrs.append(t.data_ptr())
+            scalars.append(0)
+        else:
+            ptrs.append(None)
+            scalars.append(_clamp_i32(t))
     out = torch.empty((n, out_w), dtype=torch.int32, device=dev)
     out_len = torch.empty(n, dtype=torch.int32, device=dev)
     _build.launch("ssq_trim_words", words.data_ptr(), lengths.data_ptr(),
-                  starts.data_ptr(), new_lengths.data_ptr(), out.data_ptr(),
-                  out_len.data_ptr(), n, w, out_w)
+                  *ptrs, *scalars, out.data_ptr(), out_len.data_ptr(), n, w,
+                  out_w)
     trim_words_ragged.launches += 1
     return out, out_len
 
 
 trim_words_ragged.launches = 0
-
-
-def _full(n: int, value: int, device) -> torch.Tensor:
-    return torch.full((n,), min(int(value), _INT32_MAX), dtype=torch.int32,
-                      device=device)
 
 
 def trim_words_plain(words, lengths, start: int, length: int, out_width: int):
@@ -142,10 +157,10 @@ def trim_words_plain(words, lengths, start: int, length: int, out_width: int):
 
 def trim_words(words, lengths, start: int, length: int, out_width: int):
     """Every row becomes seq[start : start + length], clamped per row
-    (kernel F with the start and length broadcast)."""
-    n = words.shape[0]
-    return trim_words_ragged(words, lengths, _full(n, start, words.device),
-                             _full(n, length, words.device), out_width)
+    (kernel F with a scalar start and length: one launch, no [N]
+    tensor)."""
+    return trim_words_ragged(words, lengths, int(start), int(length),
+                             out_width)
 
 
 # --- the batch ----------------------------------------------------------------
@@ -272,13 +287,16 @@ class PackedBatch:
                     out_width_lanes: int | None = None) -> "PackedBatch":
         """Batched subsequence with a start and length per row: row i
         becomes seq[starts[i] : starts[i] + lengths[i]] (clamped per row;
-        negative starts clamp to 0).  Scalars broadcast.  out_width_lanes
-        bounds the output lane count (default: this batch's width; rows
-        keep at most 16 * out_width nt)."""
+        negative starts clamp to 0).  Ints serve every row (kernel F
+        takes them as scalars).  out_width_lanes bounds the output lane
+        count (default: this batch's width; rows keep at most
+        16 * out_width nt)."""
         n = len(self)
         dev = self.words.device
 
         def per_row(v):
+            if isinstance(v, (int, np.integer)):
+                return int(v)
             return torch.as_tensor(v, dtype=torch.int32, device=dev) \
                 .broadcast_to((n,)).contiguous()
 

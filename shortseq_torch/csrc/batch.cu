@@ -11,8 +11,8 @@
 //
 // E: unpack_ascii  replaces shortseq_tpu/ops/bitpack.py unpack_ascii.
 // F: trim_words    replaces shortseq_tpu/batch.py _trim_words and
-//                  _trim_words_ragged (one kernel: a static start is the
-//                  ragged form with one start broadcast).
+//                  _trim_words_ragged (one kernel: a static start and
+//                  length are scalar arguments, ragged ones [N] arrays).
 // G: hamming_rows  replaces shortseq_tpu/ops/hamming.py hamming_rows.
 // All three are bound by HBM bytes; the notes say what each moves.
 
@@ -58,39 +58,97 @@ __global__ void unpack_ascii_kernel(const uint32_t* __restrict__ words,
 // F: per-row subsequence on packed lanes, [N, W] -> [N, out_w] uint32
 // plus [N] new lengths.  Row r becomes seq[start : start + len] with
 // start = max(starts[r], 0) and len clamped to the row and to 16 out_w.
+// With `starts` (or `new_lengths`) null, one scalar start (or length)
+// serves every row, as in the JAX package's static _trim_words: no [N]
+// tensor is built or read for it.
 //
-// Bound by HBM bytes: each output lane reads two source lanes of its row
-// (the second is the next thread's first, so L1 serves it) and writes one.
-// One thread per output lane, static and ragged starts alike: it gathers
-// source lanes lane0 + j and lane0 + j + 1 (zero past W) and funnel-shifts
-// them right by 2 * (start % 16), which is exact at shift 0 (where
-// hi << 32 would be undefined), then keeps 2 * clip(len - 16 j, 0, 16)
-// bits so the words stay canonical (zero past the new length).
+// Output lane j of a row is source lanes s / 16 + j and s / 16 + j + 1
+// (zero past W) funnel-shifted right by 2 * (s % 16), which is exact at
+// shift 0 (where hi << 32 would be undefined), keeping 2 * clip(len -
+// 16 j, 0, 16) bits so the words stay canonical (zero past the new
+// length).
+//
+// Bound by HBM bytes: the rows' words and lengths (and per-row starts and
+// lengths when ragged) read once, out_w words and a length a row written
+// once; a few integer ops a word.  At these bytes a word, instructions
+// set the pace (a 64-bit division, three parameter loads and a 4-byte
+// store a word cost a thread-per-word layout 2x its bound), so a block
+// owns a run of rows (a multiple of 4, so its contiguous [rows, out_w]
+// output span starts on 16 bytes) and each thread builds 4 consecutive
+// words of that span, stored as one 16-byte streaming store: row and
+// lane come from one 32-bit division a thread, then step; a row's
+// parameters are loaded once per thread that touches it, right beside
+// its source words (L1 serves a row's words to its neighbouring
+// threads), with no shared memory and no barrier.  Measured on the H100
+// (PERF.md): staging each block's rows in shared memory with 16-byte
+// loads, then building the words after one barrier, was 35% slower;
+// reusing a word's high source lane as the next word's low one (5 loads
+// for 4 words) chained the loads and was 7% slower.
 // ---------------------------------------------------------------------------
 
-__global__ void trim_words_kernel(const uint32_t* __restrict__ words,
-                                  const int32_t* __restrict__ lengths,
-                                  const int32_t* __restrict__ starts,
-                                  const int32_t* __restrict__ new_lengths,
-                                  uint32_t* __restrict__ out,
-                                  int32_t* __restrict__ out_len, int64_t n,
-                                  int w, int out_w) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n * out_w) return;
-  const int64_t row = t / out_w;
-  const int j = (int)(t - row * out_w);
-  const int start = max(starts[row], 0);
-  const int64_t src = (int64_t)(start / 16) + j;
-  const uint32_t* r = words + row * w;
-  const uint32_t lo = src < w ? r[src] : 0u;
-  const uint32_t hi = src + 1 < w ? r[src + 1] : 0u;
-  const uint32_t v = __funnelshift_r(lo, hi, 2 * (start % 16));
-  int len = min(max(new_lengths[row], 0), max(lengths[row] - start, 0));
-  len = min(len, 16 * out_w);
+constexpr int kTrimThreads = 256;
+
+// (start, new length) of one row.
+__device__ __forceinline__ int2 trim_params(
+    int64_t row, const int32_t* __restrict__ lengths,
+    const int32_t* __restrict__ starts,
+    const int32_t* __restrict__ new_lengths, int start_all, int len_all,
+    int out_w) {
+  const int s = max(starts ? starts[row] : start_all, 0);
+  const int want = new_lengths ? new_lengths[row] : len_all;
+  const int len = min(min(max(want, 0), max(lengths[row] - s, 0)), 16 * out_w);
+  return make_int2(s, len);
+}
+
+// Output lane j of a row whose source lanes are rw[0 .. w).
+__device__ __forceinline__ uint32_t trim_lane(const uint32_t* rw, int w,
+                                              int s, int len, int j) {
+  const int src = (s >> 4) + j;
+  const uint32_t lo = src < w ? rw[src] : 0u;
+  const uint32_t hi = src + 1 < w ? rw[src + 1] : 0u;
+  const uint32_t v = __funnelshift_r(lo, hi, 2 * (s & 15));
   const int rem = min(max(len - 16 * j, 0), 16);
-  const uint32_t mask = rem >= 16 ? ~0u : (1u << (2 * rem)) - 1u;
-  out[t] = v & mask;
-  if (j == 0) out_len[row] = len;
+  return v & (rem >= 16 ? ~0u : (1u << (2 * rem)) - 1u);
+}
+
+__global__ void __launch_bounds__(kTrimThreads)
+    trim_words_kernel(const uint32_t* __restrict__ words,
+                      const int32_t* __restrict__ lengths,
+                      const int32_t* __restrict__ starts,
+                      const int32_t* __restrict__ new_lengths, int start_all,
+                      int len_all, uint32_t* __restrict__ out,
+                      int32_t* __restrict__ out_len, int64_t n, int w,
+                      int out_w, int block_rows) {
+  const int64_t row0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)min((int64_t)block_rows, n - row0);
+  const int no = rows * out_w;
+  uint32_t* dst = out + row0 * out_w;
+  for (int q = threadIdx.x; 4 * q < no; q += kTrimThreads) {
+    const int o = 4 * q;
+    int r = o / out_w, j = o - r * out_w;
+    int2 p = trim_params(row0 + r, lengths, starts, new_lengths, start_all,
+                         len_all, out_w);
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = 0u;
+      if (r < rows) {
+        if (j == 0) out_len[row0 + r] = p.y;
+        v[e] = trim_lane(words + (row0 + r) * w, w, p.x, p.y, j);
+      }
+      if (++j == out_w) {
+        j = 0;
+        if (++r < rows)
+          p = trim_params(row0 + r, lengths, starts, new_lengths, start_all,
+                          len_all, out_w);
+      }
+    }
+    if (o + 4 <= no) {
+      __stcs(reinterpret_cast<uint4*>(dst + o), make_uint4(v[0], v[1], v[2], v[3]));
+    } else {
+      for (int e = 0; o + e < no; ++e) dst[o + e] = v[e];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -141,16 +199,22 @@ int ssq_unpack_ascii(const void* words, void* out, int64_t total,
 }
 
 int ssq_trim_words(const void* words, const void* lengths, const void* starts,
-                   const void* new_lengths, void* out, void* out_len,
-                   int64_t n, int w, int out_w, void* stream) {
-  if (n == 0 || out_w == 0) return 0;
-  const int threads = 256;
-  const int64_t total = n * out_w;
-  const dim3 grid((unsigned)((total + threads - 1) / threads));
-  trim_words_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, (const int32_t*)lengths,
-      (const int32_t*)starts, (const int32_t*)new_lengths, (uint32_t*)out,
-      (int32_t*)out_len, n, w, out_w);
+                   const void* new_lengths, int start, int length, void* out,
+                   void* out_len, int64_t n, int w, int out_w, void* stream) {
+  if (n == 0 || out_w <= 0) return 0;
+  // The 16-byte stores need an aligned output, which the wrapper allocates.
+  if ((uintptr_t)out % 16) return (int)cudaErrorMisalignedAddress;
+  // Rows a block: a multiple of 4 (so each block's output span starts on
+  // 16 bytes), ~2048 source words and at most 4096 output words.
+  int block_rows = 2048 / (w > 0 ? w : 1);
+  if (block_rows > 4096 / out_w) block_rows = 4096 / out_w;
+  block_rows = block_rows / 4 * 4;
+  if (block_rows < 4) block_rows = 4;
+  const int64_t blocks = (n + block_rows - 1) / block_rows;
+  trim_words_kernel<<<(unsigned)blocks, kTrimThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int32_t*)lengths, (const int32_t*)starts,
+      (const int32_t*)new_lengths, start, length, (uint32_t*)out,
+      (int32_t*)out_len, n, w, out_w, block_rows);
   return (int)cudaGetLastError();
 }
 

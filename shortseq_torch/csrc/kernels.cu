@@ -344,56 +344,144 @@ size_t pairwise_smem_bytes(int w) {
 // Same (idx, cnt) as the JAX package's max-extraction, which needed k
 // rounds over 128-column segment maxima because TPU top_k is a sort.
 //
-// Bound by HBM bytes: one read of the int32 slab (lengths and gids are
-// re-read by every row but stay in L2).  Design: one warp per row walks
-// its columns in order, 128 per step as four coalesced 32-column loads
-// issued before any is used (memory-level parallelism for a loop that is
-// otherwise latency bound); each 32-column chunk becomes a __ballot_sync
-// mask whose __popc prefix places the lane's hit, so writes come out in
-// ascending column order with no sort and no second pass.
+// What bounds it: one read of the int32 slab (lengths and gids are
+// re-read by every row but stay in L2).  On the overflow tier's slabs
+// ([256-700, ~7400], written by kernel B just before and still in L2) no
+// byte stream sets the pace: a warp that walks a whole row in order is a
+// chain of dependent load rounds, and 256 rows are 256 warps for 132 SMs.
+// So a row's columns are split into `segs` contiguous segments, one warp
+// each (segs from the host, a power of two up to 8: at least 16 warps an
+// SM, each segment >= 256 columns; 8 at [256, 7424], 4 at [706, 7424], 1
+// at [2688, 102144], the fastest on the H100 of 1, 4, 8 and 16 at each),
+// and each lane loads 4 columns of dist, length and gid as three 16-byte
+// vectors, two 128-column chunks issued before either is used (0.75
+// loads a column, not 3).  A chunk's hits become four __ballot_sync
+// masks whose __popc prefixes place each lane's hits in ascending column
+// order; a warp keeps its first k hits in its own slice of shared memory
+// and its true count.  After one barrier each warp adds the counts of
+// the row's earlier segments (its offset), copies its hits that land
+// below k to idx[r, offset + i], and the row's warps fill the empty slots
+// with U: one pass over the slab, ascending output, no sort.  With one
+// segment a row (wide slabs with many rows, or a k whose slices would
+// not fit) the warp writes its hits straight to idx.  Rows whose slab is
+// not 16-byte aligned (U % 4 != 0, or an offset pointer) load one column
+// a lane.
 // ---------------------------------------------------------------------------
 
-constexpr int NX_CHUNKS = 4;
+constexpr int NX_UNROLL = 2;      // chunks of 32 * V columns issued at once
+constexpr int NX_MAX_SEGS = 8;    // warps a row at most, and a block
 
-__global__ void neighbor_extract_kernel(
-    const int32_t* __restrict__ dist, const int32_t* __restrict__ a_len,
-    const int32_t* __restrict__ a_gid, const int32_t* __restrict__ a_rows,
-    const int32_t* __restrict__ len, const int32_t* __restrict__ gid,
-    int32_t* __restrict__ idx, int32_t* __restrict__ cnt, int64_t rows,
-    int64_t u, int threshold, int k) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (row >= rows) return;  // the whole warp shares `row`
-  const int32_t* drow = dist + row * u;
-  const int alen = a_len[row];
-  const int agid = a_gid[row];
-  const int64_t self = a_rows[row];
-  int32_t* out = idx + row * k;
+// Appends a lane's hits (bit j of h: column col + j) after the warp's
+// `count` earlier ones: slots below cap go to dst; returns the new count.
+template <int V>
+__device__ __forceinline__ int nx_append(unsigned h, int64_t col, int count,
+                                         int32_t* dst, int cap, int lane) {
   const unsigned below = (1u << lane) - 1u;
-  int count = 0;
-  for (int64_t c0 = 0; c0 < u; c0 += 32 * NX_CHUNKS) {
-    int d[NX_CHUNKS], l[NX_CHUNKS], g[NX_CHUNKS];
+  int pos = count, total = 0;
 #pragma unroll
-    for (int j = 0; j < NX_CHUNKS; ++j) {
-      const int64_t col = c0 + 32 * j + lane;
-      const bool in = col < u;
-      d[j] = in ? drow[col] : threshold + 1;
-      l[j] = in ? len[col] : 0;
-      g[j] = in ? gid[col] : 0;
-    }
+  for (int j = 0; j < V; ++j) {
+    const unsigned b = __ballot_sync(0xffffffffu, (h >> j) & 1u);
+    pos += __popc(b & below);
+    total += __popc(b);
+  }
 #pragma unroll
-    for (int j = 0; j < NX_CHUNKS; ++j) {
-      const int64_t col = c0 + 32 * j + lane;
-      const bool hit =
-          d[j] <= threshold && l[j] == alen && g[j] == agid && col != self;
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      const int pos = count + __popc(mask & below);
-      if (hit && pos < k) out[pos] = (int32_t)col;
-      count += __popc(mask);
+  for (int j = 0; j < V; ++j) {
+    if ((h >> j) & 1u) {
+      if (pos < cap) dst[pos] = (int32_t)(col + j);
+      ++pos;
     }
   }
-  for (int p = count + lane; p < k; p += 32) out[p] = (int32_t)u;
-  if (lane == 0) cnt[row] = count;
+  return count + total;
+}
+
+template <int V>
+__global__ void __launch_bounds__(NX_MAX_SEGS * 32)
+    neighbor_extract_kernel(const int32_t* __restrict__ dist,
+                            const int32_t* __restrict__ a_len,
+                            const int32_t* __restrict__ a_gid,
+                            const int32_t* __restrict__ a_rows,
+                            const int32_t* __restrict__ len,
+                            const int32_t* __restrict__ gid,
+                            int32_t* __restrict__ idx,
+                            int32_t* __restrict__ cnt, int64_t rows,
+                            int64_t u, int threshold, int k, int segs,
+                            int64_t seg_cols, int buf) {
+  extern __shared__ int32_t s_hits[];  // [warps][buf], then [warps] counts
+  const int warps = blockDim.x / 32;
+  const int wid = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int rb = wid / segs, seg = wid - rb * segs;
+  const int64_t row = (int64_t)blockIdx.x * (warps / segs) + rb;
+  int32_t* s_cnt = s_hits + warps * buf;
+  int32_t* out = idx + row * k;
+  int32_t* dst = segs == 1 ? out : s_hits + wid * buf;
+  const int cap = segs == 1 ? k : min(buf, k);
+  int count = 0;
+  if (row < rows) {
+    const int32_t* drow = dist + row * u;
+    const int alen = a_len[row], agid = a_gid[row];
+    const int64_t self = a_rows[row];
+    const int64_t begin = seg * seg_cols;
+    const int64_t end = min(u, begin + seg_cols);
+    for (int64_t c0 = begin; c0 < end; c0 += 32 * V * NX_UNROLL) {
+      int d[NX_UNROLL][V], l[NX_UNROLL][V], g[NX_UNROLL][V];
+#pragma unroll
+      for (int s = 0; s < NX_UNROLL; ++s) {
+        const int64_t col = c0 + 32 * V * s + V * lane;
+        bool vec = false;
+        if constexpr (V == 4) {
+          if (col + 4 <= end) {
+            const int4 dv = __ldcs(reinterpret_cast<const int4*>(drow + col));
+            const int4 lv = __ldg(reinterpret_cast<const int4*>(len + col));
+            const int4 gv = __ldg(reinterpret_cast<const int4*>(gid + col));
+            d[s][0] = dv.x; d[s][1] = dv.y; d[s][2] = dv.z; d[s][3] = dv.w;
+            l[s][0] = lv.x; l[s][1] = lv.y; l[s][2] = lv.z; l[s][3] = lv.w;
+            g[s][0] = gv.x; g[s][1] = gv.y; g[s][2] = gv.z; g[s][3] = gv.w;
+            vec = true;
+          }
+        }
+        if (!vec) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            const bool in = col + j < end;
+            d[s][j] = in ? __ldcs(drow + col + j) : threshold + 1;
+            l[s][j] = in ? __ldg(len + col + j) : 0;
+            g[s][j] = in ? __ldg(gid + col + j) : 0;
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < NX_UNROLL; ++s) {
+        const int64_t col = c0 + 32 * V * s + V * lane;
+        unsigned h = 0;
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          h |= (unsigned)(d[s][j] <= threshold && l[s][j] == alen &&
+                          g[s][j] == agid && col + j != self)
+               << j;
+        count = nx_append<V>(h, col, count, dst, cap, lane);
+      }
+    }
+  }
+  int total = count;
+  if (segs > 1) {
+    if (lane == 0) s_cnt[wid] = count;
+    __syncthreads();
+    if (row < rows) {
+      int offset = 0;
+      total = 0;
+      for (int w = rb * segs; w < (rb + 1) * segs; ++w) {
+        if (w < wid) offset += s_cnt[w];
+        total += s_cnt[w];
+      }
+      const int n = min(min(count, cap), k - offset);
+      for (int i = lane; i < n; i += 32) out[offset + i] = dst[i];
+    }
+  }
+  if (row < rows) {
+    for (int p = total + seg * 32 + lane; p < k; p += segs * 32)
+      out[p] = (int32_t)u;
+    if (seg == 0 && lane == 0) cnt[row] = total;
+  }
 }
 
 }  // namespace
@@ -464,15 +552,41 @@ int ssq_neighbor_extract(const void* dist, const void* a_len,
                          const void* a_gid, const void* a_rows,
                          const void* len, const void* gid, void* idx,
                          void* cnt, int64_t rows, int64_t u, int threshold,
-                         int k, void* stream) {
+                         int k, int segs, void* stream) {
   if (rows == 0) return 0;
-  const int threads = 256;
-  const int64_t rows_per_block = threads / 32;
-  const dim3 grid((unsigned)((rows + rows_per_block - 1) / rows_per_block));
-  neighbor_extract_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const bool vec = u % 4 == 0 && (uintptr_t)dist % 16 == 0 &&
+                   (uintptr_t)len % 16 == 0 && (uintptr_t)gid % 16 == 0;
+  const int v = vec ? 4 : 1;
+  if (segs <= 0) {
+    // Segments a row (a power of two): at least 16 warps an SM, each
+    // segment at least 256 columns.
+    segs = 1;
+    const int64_t target = (int64_t)sm_count() * 16;
+    while (segs < NX_MAX_SEGS && rows * segs < target &&
+           u >= (int64_t)512 * segs)
+      segs *= 2;
+  }
+  segs = segs < NX_MAX_SEGS ? segs : NX_MAX_SEGS;
+  int64_t seg_cols;
+  int buf, warps;
+  size_t smem;
+  for (;;) {
+    seg_cols = ((u + segs - 1) / segs + v - 1) / v * v;
+    buf = (int)(seg_cols < k ? seg_cols : k);
+    const int rows_per_block = segs < NX_MAX_SEGS ? NX_MAX_SEGS / segs : 1;
+    warps = rows_per_block * segs;
+    smem = segs == 1 ? 0 : sizeof(int32_t) * (size_t)warps * (buf + 1);
+    if (segs == 1 || smem <= 48 * 1024) break;
+    segs /= 2;  // the warps' hit slices must fit the default 48 KB
+  }
+  const int64_t blocks = (rows + warps / segs - 1) / (warps / segs);
+  cudaStream_t s = (cudaStream_t)stream;
+  auto run = vec ? &neighbor_extract_kernel<4> : &neighbor_extract_kernel<1>;
+  run<<<(unsigned)blocks, warps * 32, smem, s>>>(
       (const int32_t*)dist, (const int32_t*)a_len, (const int32_t*)a_gid,
       (const int32_t*)a_rows, (const int32_t*)len, (const int32_t*)gid,
-      (int32_t*)idx, (int32_t*)cnt, rows, u, threshold, k);
+      (int32_t*)idx, (int32_t*)cnt, rows, u, threshold, k, segs, seg_cols,
+      buf);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@ Pipeline:
               columns and its true neighbour count in one launch, with no
               distance slab; only those cross to the host.  Rows with more
               than k neighbours are re-extracted at _OVERFLOW_K (kernel B
-              writes a [256, U] slab, kernel C reduces it), and rows
-              beyond that take a dense mask fetch.
+              writes an L2-sized [rows, U] slab a batch, kernel C reduces
+              it; every batch queued, one fetch), and rows beyond that
+              take a dense mask fetch.
   collapse  - host graph walk over the sparse lists, O(edges).
 
 `device` is explicit everywhere: "cuda" runs the kernels and raises when
@@ -50,13 +51,20 @@ _PAIR_BUDGET = 16384 * 16384
 
 _METHODS = ("unique", "cluster", "adjacency", "directional")
 
-# Per-row neighbour cap of the extraction (kernel C).  UMI graphs are
-# sparse; rows over the cap are re-extracted in batches of
-# _DENSE_ROWS_BATCH at _OVERFLOW_K, and only rows beyond THAT (threshold
-# >= 2 pathologies) take a dense mask fetch.
+# Per-row neighbour cap of the main pass (kernel H).  UMI graphs are
+# sparse; rows over the cap are re-extracted at _OVERFLOW_K (kernels B +
+# C) in batches of at least _DENSE_ROWS_BATCH rows, more while a batch's
+# [rows, U] slab stays within _OVERFLOW_SLAB entries (L2-sized), and only
+# rows beyond THAT (threshold >= 2 pathologies) take a dense mask fetch,
+# _DENSE_ROWS_BATCH rows at a time.
 _NEIGHBOR_K = 16
 _OVERFLOW_K = 128
 _DENSE_ROWS_BATCH = 256
+_OVERFLOW_SLAB = 5 << 20
+
+# Column segments a row of kernel C (0: the kernel picks from the slab's
+# shape).
+_EXTRACT_SEGS = 0
 
 
 _resolve_device = _build.resolve_device
@@ -178,29 +186,47 @@ def neighbor_extract_plain(dist, a_lengths, a_gids, a_rows, lengths, gids,
 
 
 def neighbor_extract(dist, a_lengths, a_gids, a_rows, lengths, gids,
-                     threshold: int, k: int):
+                     threshold: int, k: int, out=None):
     """Kernel C: the [B, U] int32 distance slab -> (idx [B, k], cnt [B]),
     the same encoding as the JAX package's _adjacency_score +
-    _extract_ascending.  A CUDA slab launches the kernel; a CPU slab takes
-    the plain version."""
+    _extract_ascending.  `out`, when given, is an (idx, cnt) pair of
+    contiguous int32 tensors of those shapes that receives the result.  A
+    CUDA slab launches the kernel; a CPU slab takes the plain version."""
+    b, u = dist.shape
+    if out is not None:
+        for name, t, shape in (("idx", out[0], (b, k)), ("cnt", out[1], (b,))):
+            if tuple(t.shape) != shape or t.dtype != torch.int32 \
+                    or not t.is_contiguous():
+                raise ValueError(f"out {name} must be a contiguous {shape} "
+                                 f"int32 tensor, got {tuple(t.shape)} "
+                                 f"{t.dtype}")
     if dist.device.type == "cpu":
-        return neighbor_extract_plain(dist, a_lengths, a_gids, a_rows,
-                                      lengths, gids, threshold, k)
+        got = neighbor_extract_plain(dist, a_lengths, a_gids, a_rows,
+                                     lengths, gids, threshold, k)
+        if out is None:
+            return got
+        out[0].copy_(got[0])
+        out[1].copy_(got[1])
+        return out
     dev = dist.device
     _build.check_operand(dist, "dist", torch.int32, 2, dev)
-    b, u = dist.shape
     for name, t, n in (("a_lengths", a_lengths, b), ("a_gids", a_gids, b),
                        ("a_rows", a_rows, b), ("lengths", lengths, u),
                        ("gids", gids, u)):
         _build.check_operand(t, name, torch.int32, 1, dev)
         if t.shape[0] != n:
             raise ValueError(f"{name} has {t.shape[0]} entries, expected {n}")
-    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
-    cnt = torch.empty(b, dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty((b, k), dtype=torch.int32, device=dev),
+               torch.empty(b, dtype=torch.int32, device=dev))
+    idx, cnt = out
+    for name, t in (("idx", idx), ("cnt", cnt)):
+        if t.device != dev:
+            raise ValueError(f"out {name} is on {t.device}, expected {dev}")
     _build.launch("ssq_neighbor_extract", dist.data_ptr(),
                   a_lengths.data_ptr(), a_gids.data_ptr(), a_rows.data_ptr(),
                   lengths.data_ptr(), gids.data_ptr(), idx.data_ptr(),
-                  cnt.data_ptr(), b, u, int(threshold), int(k))
+                  cnt.data_ptr(), b, u, int(threshold), int(k), _EXTRACT_SEGS)
     neighbor_extract.launches += 1
     return idx, cnt
 
@@ -299,8 +325,9 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
     The main pass is one call of kernel H over all rows on `device`: no
     distance slab is written, and host memory and transfer are
     O(U * k + edges), never O(U^2).  Rows with more than k neighbours
-    take kernels B + C at a larger cap, and rows beyond that a dense mask
-    (both on [256, U] slabs)."""
+    take kernels B + C at a larger cap, all their batches queued and
+    fetched once, and rows beyond that a dense mask (on [rows, U] slabs of
+    at most max(_DENSE_ROWS_BATCH, _OVERFLOW_SLAB / U) rows)."""
     device = torch.device(device)
     u = len(lengths)
     if u == 0:
@@ -343,42 +370,50 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
     flat = idx[valid]
     neighbors = np.split(flat, np.cumsum(valid.sum(axis=1))[:-1])
 
-    # Rows with more than k neighbours are re-extracted in fixed-size
-    # batches at a larger cap; rows beyond even that (threshold >= 2
-    # pathologies; threshold 1 is bounded by 3L <= 96 < _OVERFLOW_K) take
-    # one dense mask fetch per batch.
+    # Rows with more than k neighbours are re-extracted at a larger cap:
+    # their ids go to `device` once, each batch's kernel B (into one shared
+    # slab) and kernel C (into its rows of one [n_over, k2] / [n_over]
+    # pair) are queued with no sync between batches (stream order makes
+    # reusing the slab safe), and the pair is fetched once.  Rows beyond
+    # even k2 (threshold >= 2 pathologies; threshold 1 is bounded by
+    # 3L <= 96 < _OVERFLOW_K) take one dense mask fetch per batch of
+    # _DENSE_ROWS_BATCH.
     over = np.flatnonzero(cnt > k)
     if over.size:
         k2 = min(_OVERFLOW_K, u_pad)
-        p = _DENSE_ROWS_BATCH
+        n_over = over.size
+        p = min(n_over, max(_DENSE_ROWS_BATCH, _OVERFLOW_SLAB // u_pad))
+        over_d = torch.from_numpy(over.astype(np.int32)).to(device)
+        a_words, a_lengths, a_gids = (t[over_d]
+                                      for t in (words_d, lengths_d, gids_d))
+        idx2 = torch.empty((n_over, k2), dtype=torch.int32, device=device)
+        cnt2 = torch.empty(n_over, dtype=torch.int32, device=device)
         slab = torch.empty((p, u_pad), dtype=torch.int32, device=device)
-
-        def batch(sel):
-            """Kernel B for up to p rows into `slab` (short batches repeat
-            row 0); returns the batch's (lengths, gids, row ids)."""
-            sel_pad = np.zeros(p, np.int64)
-            sel_pad[:sel.size] = sel
-            sel_d = torch.from_numpy(sel_pad).to(device)
-            hamming_pairwise_tiled(words_d[sel_d], words_d, out=slab)
-            return (lengths_d[sel_d], gids_d[sel_d],
-                    sel_d.to(torch.int32))
-
-        still = []
-        for lo in range(0, over.size, p):
-            sel = over[lo:lo + p]
-            idx2, cnt2 = neighbor_extract(slab, *batch(sel), lengths_d,
-                                          gids_d, threshold, k2)
-            idx2, cnt2 = idx2.cpu().numpy(), cnt2.cpu().numpy()
-            for i, r in enumerate(sel):
-                if cnt2[i] <= k2:
-                    neighbors[r] = idx2[i][idx2[i] < u_pad]
-                else:
-                    still.append(r)
-        for lo in range(0, len(still), p):
-            sel = np.asarray(still[lo:lo + p], np.int64)
-            adj = _adjacency(slab, *batch(sel), lengths_d, gids_d,
-                             threshold).cpu().numpy()
-            for i, r in enumerate(sel):
+        for lo in range(0, n_over, p):
+            hi = min(lo + p, n_over)
+            part = slab[:hi - lo]
+            hamming_pairwise_tiled(a_words[lo:hi], words_d, out=part)
+            neighbor_extract(part, a_lengths[lo:hi], a_gids[lo:hi],
+                             over_d[lo:hi], lengths_d, gids_d, threshold, k2,
+                             out=(idx2[lo:hi], cnt2[lo:hi]))
+        idx2, cnt2 = idx2.cpu().numpy(), cnt2.cpu().numpy()
+        fits = cnt2 <= k2
+        # One mask over the rows that fit, then a slice of it per row.
+        sub = idx2 if fits.all() else idx2[fits]
+        keep = sub < u_pad
+        flat2 = sub[keep]
+        ends = np.cumsum(keep.sum(axis=1)).tolist()
+        for r, a, b in zip(over[fits].tolist(), [0] + ends[:-1], ends):
+            neighbors[r] = flat2[a:b]
+        still = over[~fits]
+        still_d = torch.from_numpy(still.astype(np.int32)).to(device)
+        for lo in range(0, still.size, _DENSE_ROWS_BATCH):
+            sel = still_d[lo:lo + _DENSE_ROWS_BATCH]
+            part = slab[:sel.numel()]
+            hamming_pairwise_tiled(words_d[sel], words_d, out=part)
+            adj = _adjacency(part, lengths_d[sel], gids_d[sel], sel,
+                             lengths_d, gids_d, threshold).cpu().numpy()
+            for i, r in enumerate(still[lo:lo + _DENSE_ROWS_BATCH]):
                 neighbors[r] = np.flatnonzero(adj[i][:u])
     return neighbors
 

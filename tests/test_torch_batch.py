@@ -335,6 +335,51 @@ def test_trim_words_ragged_matches_jax(out_w):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
 
 
+@pytest.mark.parametrize("start", [0, 15, 16, 17, 40])
+def test_trim_words_scalar_mode_matches_jax(start):
+    # trim_words hands kernel F a scalar start and length (on the CPU the
+    # plain version); out_w 12 > W = 10 keeps lanes past the source.
+    words, lengths = _trim_inputs(start)
+    for length in (0, 1, 16, 33, 100, 150):
+        for out_w in (max(tconst.lanes_for_length(length), 1), 12):
+            want = jbatch._trim_words(words, lengths, start, length, out_w)
+            got = tbatch.trim_words(from_numpy_u32(words),
+                                    torch.from_numpy(lengths), start, length,
+                                    out_w)
+            np.testing.assert_array_equal(to_numpy_u32(got[0]),
+                                          np.asarray(want[0]))
+            np.testing.assert_array_equal(got[1].numpy(),
+                                          np.asarray(want[1]))
+
+
+def test_trim_ragged_int_arguments_equal_tensor_form():
+    words, lengths = _trim_inputs(3, n=300)
+    w, ln = from_numpy_u32(words), torch.from_numpy(lengths)
+    per = np.random.default_rng(4).integers(0, 160, size=300).astype(np.int32)
+    for start, length in ((0, 160), (17, 90), (-4, 33), (200, 5),
+                          (3, 2**40), (-2**40, 7)):
+        for out_w in (1, 7, 12):
+            tensors = [torch.from_numpy(np.full(300, np.clip(
+                v, -2**31, 2**31 - 1), np.int32)) for v in (start, length)]
+            want = tbatch.trim_words_ragged(w, ln, *tensors, out_w)
+            for args in ((start, length), (tensors[0], length),
+                         (start, tensors[1])):
+                got = tbatch.trim_words_ragged(w, ln, *args, out_w)
+                assert torch.equal(got[0], want[0]) and \
+                    torch.equal(got[1], want[1]), (start, length, out_w)
+        got = tbatch.trim_words_ragged(w, ln, torch.from_numpy(per), length,
+                                       10)
+        want = tbatch.trim_words_ragged(
+            w, ln, torch.from_numpy(per), tensors[1], 10)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    b = st.PackedBatch(w, ln)
+    for start, length in ((3, 12), (np.int32(40), np.int64(100))):
+        got = b.trim_ragged(start, length)
+        want = b.trim_ragged([int(start)] * 300, [int(length)] * 300)
+        assert torch.equal(got.words, want.words)
+        assert torch.equal(got.lengths, want.lengths)
+
+
 def test_trim_words_ragged_rejects_bad_shapes():
     w = torch.zeros((3, 2), dtype=torch.int32)
     v = torch.zeros(3, dtype=torch.int32)
@@ -412,3 +457,39 @@ def test_trim_kernel_matches_plain_on_card(cuda, out_w):
     got = tbatch.trim_words_ragged(*args, out_w)
     want = tbatch.trim_words_ragged_plain(*args, out_w)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,w", [(1, 10), (1001, 10), (4097, 3), (300, 64)])
+def test_trim_kernel_scalar_and_ragged_on_card(cuda, n, w):
+    # Starts past the row, length 0, starts on lane edges (16, 32) and
+    # beside one (15, 17), out_w > W, N = 1 and N off the block's rows,
+    # and words off 16-byte alignment (a row slice): scalar and ragged
+    # modes against the plain version, one launch a call.
+    words, lengths = _trim_inputs(n + w, n=n + 1, w=w)
+    full = from_numpy_u32(words).to(cuda)
+    lens = torch.from_numpy(lengths).to(cuda)
+    rng = np.random.default_rng(n)
+    for wd, ln in ((full[:n], lens[:n]), (full[1:], lens[1:])):
+        for start, length in ((0, 16 * w), (15, 100), (16, 0), (17, 40),
+                              (32, 1000), (16 * w + 3, 5)):
+            for out_w in (1, w, w + 2):
+                before = tbatch.trim_words_ragged.launches
+                got = tbatch.trim_words(wd, ln, start, length, out_w)
+                assert tbatch.trim_words_ragged.launches == before + 1
+                want = tbatch.trim_words_plain(wd, ln, start, length, out_w)
+                assert torch.equal(got[0], want[0]), (start, length, out_w)
+                assert torch.equal(got[1], want[1]), (start, length, out_w)
+        starts = torch.from_numpy(rng.integers(-3, 16 * w + 8, size=n)
+                                  .astype(np.int32)).to(cuda)
+        keep = torch.from_numpy(rng.integers(-2, 16 * w + 8, size=n)
+                                .astype(np.int32)).to(cuda)
+        for out_w in (1, w, w + 2):
+            for s, k in ((starts, keep), (17, keep), (starts, 40)):
+                got = tbatch.trim_words_ragged(wd, ln, s, k, out_w)
+                sp = s if isinstance(s, torch.Tensor) else torch.full_like(
+                    keep, s)
+                kp = k if isinstance(k, torch.Tensor) else torch.full_like(
+                    keep, k)
+                want = tbatch.trim_words_ragged_plain(wd, ln, sp, kp, out_w)
+                assert torch.equal(got[0], want[0]) and \
+                    torch.equal(got[1], want[1])

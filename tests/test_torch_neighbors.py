@@ -1,7 +1,9 @@
 """shortseq_torch neighbour lists (kernels B + C, plain versions on the
 CPU) against the JAX package's _neighbor_lists on identical packed words:
 group ids, pad rows, several block sizes, the overflow tier and the dense
-tier.  Mirrors tests/test_umi.py:257-320,474-490.  Exact comparisons."""
+tier, kernel C's edge rows (chip_smoke.c_edge_slab, which the card run
+also checks).  Mirrors tests/test_umi.py:257-320,474-490.  Exact
+comparisons."""
 
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 
 import shortseq_torch.umi.dedup as td
 import shortseq_tpu.umi.dedup as jd
+from chip_smoke import c_edge_slab
 
 ALPHA = np.frombuffer(b"ACGT", np.uint8)
 
@@ -100,6 +103,73 @@ def test_dense_tier_matches_jax(monkeypatch):
     assert max(map(len, full)) > 3      # the dense tier really ran
 
 
+@pytest.mark.parametrize("caps", [(2, 3, 3), (1, 4, 2)])
+def test_overflow_batches_and_dense_tier_match_jax(monkeypatch, caps):
+    # Rows over the main cap go through the overflow tier in several
+    # batches (the slab budget off, so each batch is _DENSE_ROWS_BATCH
+    # rows), and rows over _OVERFLOW_K through the dense tier.
+    k, k2, rows = caps
+    words, lengths = _packed(_variant_umis(40, 5, seed=11, frac=0.8))
+    full = td._neighbor_lists(words, lengths, 2, device="cpu")
+    deg = np.array([len(x) for x in full])
+    assert (deg > k2).sum() >= 2 and ((deg > k) & (deg <= k2)).sum() >= 2
+    assert (deg > k).sum() >= 3 * rows      # at least three overflow batches
+    for mod in (td, jd):
+        monkeypatch.setattr(mod, "_NEIGHBOR_K", k)
+        monkeypatch.setattr(mod, "_OVERFLOW_K", k2)
+        monkeypatch.setattr(mod, "_DENSE_ROWS_BATCH", rows)
+    monkeypatch.setattr(td, "_OVERFLOW_SLAB", 0)
+    slabs = []
+    real = td.hamming_pairwise_tiled
+
+    def counted(a, b, out=None):
+        slabs.append(a.shape[0])
+        return real(a, b, out=out)
+
+    monkeypatch.setattr(td, "hamming_pairwise_tiled", counted)
+    got = td._neighbor_lists(words, lengths, 2, device="cpu")
+    want = jd._neighbor_lists(words, lengths, 2)
+    _assert_lists_equal(got, want)
+    _assert_lists_equal(got, full)
+    n_over, n_dense = (deg > k).sum(), (deg > k2).sum()
+    assert slabs == [rows] * (n_over // rows) + [n_over % rows] * bool(
+        n_over % rows) + [rows] * (n_dense // rows) + [n_dense % rows] * bool(
+        n_dense % rows)
+
+
+def test_extract_writes_into_out():
+    t = [torch.from_numpy(x) for x in _slab(12, 300, seed=5)]
+    want = td.neighbor_extract(*t, 1, 8)
+    idx = torch.full((20, 8), -7, dtype=torch.int32)
+    cnt = torch.full((20,), -7, dtype=torch.int32)
+    got = td.neighbor_extract(*t, 1, 8, out=(idx[4:16], cnt[4:16]))
+    assert got[0].data_ptr() == idx[4:16].data_ptr()
+    assert torch.equal(idx[4:16], want[0]) and torch.equal(cnt[4:16], want[1])
+    assert (idx[:4] == -7).all() and (cnt[16:] == -7).all()
+    with pytest.raises(ValueError, match="out idx"):
+        td.neighbor_extract(*t, 1, 8, out=(idx[:12, :4], cnt[:12]))
+
+
+@pytest.mark.parametrize("u", [1001, 1004, 7424])
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_extract_plain_edge_rows_match_jax(u, k):
+    import jax.numpy as jnp
+
+    dist, a_len, a_gid, a_rows, lengths, gids = c_edge_slab(u, k, seed=u + k)
+    t = [torch.from_numpy(x) for x in (dist, a_len, a_gid, a_rows, lengths,
+                                       gids)]
+    idx, cnt = td.neighbor_extract(*t, 1, k)
+    cols = np.arange(u)
+    adj = ((dist <= 1) & (a_len[:, None] == lengths[None, :])
+           & (a_gid[:, None] == gids[None, :])
+           & (cols[None, :] != a_rows[:, None]))
+    score = np.where(adj, u - cols, 0).astype(np.int32)
+    np.testing.assert_array_equal(
+        idx.numpy(), np.asarray(jd._extract_ascending(jnp.asarray(score), k)))
+    np.testing.assert_array_equal(cnt.numpy(), adj.sum(axis=1))
+    assert list(cnt.numpy()[:4]) == [0, k, k + 5, 2]
+
+
 def _slab(b, u, seed):
     """Random distance slab with pad columns (length -1), two groups and
     the rows' own columns, so every mask term matters."""
@@ -140,6 +210,24 @@ def test_extract_kernel_matches_plain_on_card(cuda, k):
     got = td.neighbor_extract(*t, 1, k)
     assert td.neighbor_extract.launches == before + 1
     want = td.neighbor_extract_plain(*t, 1, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("u", [1001, 1003, 1004, 7424])
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("segs", [0, 1, 3, 8, 16])
+def test_extract_kernel_edge_rows_on_card(cuda, monkeypatch, u, k, segs):
+    monkeypatch.setattr(td, "_EXTRACT_SEGS", segs)
+    host = c_edge_slab(u, k, seed=u + k)
+    t = [torch.from_numpy(x).to(cuda) for x in host]
+    want = td.neighbor_extract_plain(*t, 1, k)
+    got = td.neighbor_extract(*t, 1, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # The same slab one element off 16-byte alignment.
+    off = torch.empty(host[0].size + 1, dtype=torch.int32, device=cuda)
+    dist = off[1:].view(host[0].shape)
+    dist.copy_(t[0])
+    got = td.neighbor_extract(dist, *t[1:], 1, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
