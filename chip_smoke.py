@@ -44,10 +44,13 @@ Phases, one line each; any failure raises and exits nonzero:
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
              words), E at [2M, 10], F (kernel_f) static (8, 100) (one
              launch a call) and ragged at [2M, 10] with its wrapper's host
-             time and 216 exact edge cases (f_edge_cases), G at [2M, 10]
-             and [262144, 64], each with its device time, and the one-hot
-             pairwise product against B at [512] x [16384], W = 1, 2, 10,
-             64
+             time and 216 exact edge cases (f_edge_cases), G (kernel_g)
+             at [2M, 10], [262144, 64] and [2M, 1], each with its device
+             time, its wrapper's host time and its exact edge cases
+             (g_edge_cases: N = 1 to 4097 around a block's rows, W = 1 to
+             64, row views off 16 bytes, distances 0 and 16 W), and the
+             one-hot pairwise product against B at [512] x [16384], W = 1,
+             2, 10, 64
   umi_scale  dedup_umis on 100,000 unique 12-nt UMIs x 3 (directional,
              threshold 1): a valid partition, the neighbour lists' wall
              and the host's split of them timed alone, a 512-row slab of
@@ -77,7 +80,8 @@ Phases, one line each; any failure raises and exits nonzero:
              the card: decode() equal to the reads (kernel E, the copy to
              the host and the host's strings timed apart), trim(8, 100) and
              trim_ragged against Python slices on 10,000 rows, hamming
-             against a copy with known substitutions, a 4096-row block
+             against a copy with known substitutions (kernel G's device
+             time beside the wall), a 4096-row block
              against 131,072 rows through the calibrated pairwise selector
              (the choice, never plain, and its times per lane width),
              counts() equal to the host engine's table; pack_batch on
@@ -446,11 +450,6 @@ def kernel_checks(torch, results, lines):
     a = words[lo:lo + block]
     slab = torch.empty((block, u_pad), dtype=torch.int32, device="cuda")
 
-    def rand_lanes(n, w):
-        return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, w),
-                                             dtype=np.int64)
-                                .astype(np.int32)).cuda()
-
     def b_case(name, a, b, out=None, chunk=None, runs=7):
         def kernel():
             return pairwise.hamming_pairwise_tiled(a, b, out=out)
@@ -474,9 +473,10 @@ def kernel_checks(torch, results, lines):
 
     errs = [b_case("[2688]x[102144] W=2", a, words, out=slab)[0]]
     for w in (6, 64):
-        errs.append(b_case(f"[512]x[16384] W={w}", rand_lanes(512, w),
-                           rand_lanes(16384, w))[0])
-    aw, bw = rand_lanes(4096, 10), rand_lanes(131072, 10)
+        errs.append(b_case(f"[512]x[16384] W={w}",
+                           card_lanes(torch, rng, 512, w),
+                           card_lanes(torch, rng, 16384, w))[0])
+    aw, bw = (card_lanes(torch, rng, n, 10) for n in (4096, 131072))
     err, t, bnd = b_case("[4096]x[131072] W=10", aw, bw, chunk=256, runs=3)
     del aw, bw
     torch.cuda.empty_cache()
@@ -1043,9 +1043,7 @@ def f_edge_cases(torch, rng):
     from shortseq_torch import batch
 
     for n, w in ((1, 10), (1001, 10), (4097, 3), (300, 64)):
-        full = torch.from_numpy(rng.integers(-2**31, 2**31, size=(n + 1, w),
-                                             dtype=np.int64)
-                                .astype(np.int32)).cuda()
+        full = card_lanes(torch, rng, n + 1, w)
         lens = torch.from_numpy(rng.integers(0, 16 * w + 1, size=n + 1)
                                 .astype(np.int32)).cuda()
         starts = torch.from_numpy(rng.integers(-3, 16 * w + 8, size=n)
@@ -1214,9 +1212,7 @@ def kernel_d(torch, timer, rng, lines):
             (1_000_000, 6, 300_000, False, (33, 96)),
             (10_000_000, 2, 1, False, (24, 24))):
         m = keys or n
-        pool = torch.from_numpy(rng.integers(-2**31, 2**31, size=(m, w),
-                                             dtype=np.int64)
-                                .astype(np.int32)).cuda()
+        pool = card_lanes(torch, rng, m, w)
         pool_len = torch.from_numpy(rng.integers(
             lens[0], lens[1] + 1, size=m).astype(np.int32)).cuda()
         if keys is None:
@@ -1314,35 +1310,12 @@ def batch_kernels(torch, timer, rng, lines, extras=True):
           [err], t, bnd)
 
     out["trim_words"] = kernel_f(torch, timer, lines, words, rng, extras)
-
-    errs, g_main = [], None
-    other = words.roll(1, 0)
-    wide = [torch.from_numpy(rng.integers(-2**31, 2**31, size=(262144, 64),
-                                          dtype=np.int64)
-                             .astype(np.int32)).cuda() for _ in range(2)]
-    for name, a, b in (("[2M,10]", words, other),
-                       ("[262144,64]", wide[0], wide[1])):
-        want = hamming.hamming_rows_plain(a, b)
-        errs.append(exact(f"G {name}", [hamming.hamming_rows(a, b)], [want]))
-        t = timer([lambda: hamming.hamming_rows(a, b),
-                   lambda: hamming.hamming_rows_plain(a, b)])
-        bnd = bound([a, b], [want], popc=a.shape[0] * -(-a.shape[1] // 2))
-        split = launch_split(torch, lambda: hamming.hamming_rows(a, b),
-                             ("hamming_rows",))
-        lines.append(f"G {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms; "
-                     f"{split}; " + bound_text(bnd))
-        g_main = g_main or (t, bnd)
-    entry("hamming_rows", SOURCE_BATCH, "shortseq_tpu/ops/hamming.py:26",
-          errs, *g_main)
-    del words, other, wide
+    out["hamming_rows"] = kernel_g(torch, timer, lines, words, rng, extras)
+    del words
 
     for w in (1, 2, 10, 64):
-        a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(512, w),
-                                          dtype=np.int64)
-                             .astype(np.int32)).cuda()
-        b = torch.from_numpy(rng.integers(-2**31, 2**31, size=(16384, w),
-                                          dtype=np.int64)
-                             .astype(np.int32)).cuda()
+        a = card_lanes(torch, rng, 512, w)
+        b = card_lanes(torch, rng, 16384, w)
         b[:512] = a ^ (1 << 2 * (w % 16))         # near-identical rows
         exact(f"onehot W={w}", [hamming.hamming_pairwise_onehot(a, b)],
               [pairwise.hamming_pairwise_tiled(a, b)])
@@ -1351,6 +1324,124 @@ def batch_kernels(torch, timer, rng, lines, extras=True):
         lines.append(f"onehot [512]x[16384] W={w}: {t[0]:.4f} ms, kernel B "
                      f"{t[1]:.4f} ms (equal)")
     return out
+
+
+def card_lanes(torch, rng, n, w):
+    """[n, w] random int32 lanes on the card."""
+    import numpy as np
+
+    return torch.from_numpy(rng.integers(-2**31, 2**31, size=(n, w),
+                                         dtype=np.int64)
+                            .astype(np.int32)).cuda()
+
+
+def kernel_g(torch, timer, lines, words, rng, extras=True, other=None):
+    """Kernel G against its plain version: the batch phase's [2M,10] words
+    against the same rows rolled by one (the JSON line), random
+    [262144,64] (1024-nt rows) and random [2M,1]; each exact, timed by
+    CUDA events (every version in turns, before any torch.profiler run)
+    and by torch.profiler, beside its bound and the device time of one
+    torch.bitwise_xor over the same operands (a yardstick of the card's
+    streaming rate); then the wrapper's host time a call at [1024,10], and
+    its two operand checks' alone.  With
+    `extras`, also the edge cases of g_edge_cases, exact.  `other` (a
+    checkout's root, see load_other): that tree's G timed in turns with
+    this one's on the same inputs.  Returns the [2M,10] case's entry."""
+    import importlib
+
+    from shortseq_torch import _build
+    from shortseq_torch.ops import hamming
+
+    versions = {"": hamming}
+    if other is not None:
+        versions[f"the tree at {other}"] = importlib.import_module(
+            load_other(other).__name__ + ".ops.hamming")
+    shapes = (("[2M,10]", words, words.roll(1, 0)),
+              ("[262144,64]", *(card_lanes(torch, rng, 262144, 64)
+                                for _ in range(2))),
+              ("[2M,1]", *(card_lanes(torch, rng, 2_000_000, 1)
+                           for _ in range(2))))
+    errs, timed = [], []
+    for name, a, b in shapes:
+        want = hamming.hamming_rows_plain(a, b)
+        for tag, mod in versions.items():
+            errs.append(exact(f"G {name} {tag}",
+                              [mod.hamming_rows(a, b)], [want]))
+        bnd = bound([a, b], [want], popc=a.shape[0] * -(-a.shape[1] // 2))
+        del want
+        before = hamming.hamming_rows.launches
+        hamming.hamming_rows(a, b)
+        calls = hamming.hamming_rows.launches - before
+        timed.append((calls, bnd, timer(
+            [lambda mod=mod: mod.hamming_rows(a, b)
+             for mod in versions.values()]
+            + [lambda: hamming.hamming_rows_plain(a, b)])))
+    for (name, a, b), (calls, bnd, t) in zip(shapes, timed):
+        for (tag, mod), ms in zip(versions.items(), t):
+            split = launch_split(torch, lambda: mod.hamming_rows(a, b),
+                                 ("hamming_rows",), runs=10)
+            lines.append(f"G {name}{' ' + tag if tag else ''}: {ms:.4f} ms, "
+                         f"plain {t[-1]:.4f} ms; {split}; {bound_text(bnd)}"
+                         + ("" if tag else f"; {calls} counted launch a call"))
+        # A yardstick of the card's streaming rate for a like mix of
+        # reads and writes: one elementwise torch op over both operands.
+        xor = bound([a, b], [a])
+        lines.append(f"G {name} yardstick, torch.bitwise_xor(a, b) (reads "
+                     f"both, writes [N, W]): {bound_text(xor)}; "
+                     + launch_split(torch, lambda: torch.bitwise_xor(a, b),
+                                    ("xor",), runs=10))
+    a, b = shapes[0][1][:1024], shapes[0][2][:1024]
+    for tag, mod in versions.items():
+        us = host_us(torch, lambda: mod.hamming_rows(a, b))
+        lines.append(f"G wrapper host time at [1024,10]"
+                     f"{' ' + tag if tag else ''}: {us:.1f} us a call")
+    us = host_us(torch, lambda: (
+        _build.check_operand(a, "a", torch.int32, 2, a.device),
+        _build.check_operand(b, "b", torch.int32, 2, a.device)))
+    lines.append(f"G's two operand checks alone: {us:.1f} us a call")
+    if extras:
+        n_cases = 0
+        for name, got, want in g_edge_cases(torch, rng):
+            errs.append(exact(f"G {name}", [got], [want]))
+            n_cases += 1
+        lines.append(f"G: {n_cases} edge cases exact (N = 1, 3, 4, 5, 4097 "
+                     "and a block's rows +- 1 at W = 1, 2, 3, 4, 5, 10, 16, "
+                     "33, 63, 64; random, row views 1 row off the base (both "
+                     "operands, one), identical rows (0), every code XOR 3 "
+                     "(16 W))")
+    calls, bnd, t = timed[0]
+    return dict(source=SOURCE_BATCH, replaces="shortseq_tpu/ops/hamming.py:26",
+                max_abs_err=max(errs), ms=t[0], plain_ms=t[-1],
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+
+
+def g_edge_cases(torch, rng):
+    """Kernel G's edge cases: (name, kernel output, plain output) for
+    random lanes at N = 1, 3, 4, 5, 4097 and a block's rows +- 1 (the
+    kernel's own ssq_hamming_block_rows), W = 1, 2, 3, 4, 5, 10, 16, 33,
+    63, 64: the rows as they are, both operands 1 row off the base (4 W
+    bytes: off 16-byte alignment unless 4 divides W, so the kernel's
+    4-byte instance runs), one operand off, identical rows (all 0) and
+    every 2-bit code XOR 0b11 (all 16 W)."""
+    from shortseq_torch import _build
+    from shortseq_torch.ops import hamming
+
+    lib = _build.cuda_lib()
+    for w in (1, 2, 3, 4, 5, 10, 16, 33, 63, 64):
+        rows = lib.ssq_hamming_block_rows(w)
+        for n in sorted({1, 3, 4, 5, 4097, rows - 1, rows + 1}):
+            a, b = (card_lanes(torch, rng, n + 1, w) for _ in range(2))
+            tag = f"[{n},{w}]"
+            for view, x, y in (("", a[:n], b[:n]), (" both off", a[1:], b[1:]),
+                               (" one off", a[1:], b[:n])):
+                yield (tag + view, hamming.hamming_rows(x, y),
+                       hamming.hamming_rows_plain(x, y))
+            for view, y, d in ((" identical", a[:n].clone(), 0),
+                               (" codes XOR 3", ~a[:n], 16 * w)):
+                want = hamming.hamming_rows_plain(a[:n], y)
+                if not bool((want == d).all()):
+                    raise AssertionError(f"G {tag}{view}: plain is not {d}")
+                yield tag + view, hamming.hamming_rows(a[:n], y), want
 
 
 def one_bucket_keys(seed, n, d, w=2, length=20):
@@ -1648,6 +1739,33 @@ def c_and_f(edges=True, other=None):
     lines.append("host time of one torch add_ on the card: "
                  + ", ".join(f"{p:.1f} us" for p in probe)
                  + " (before anything, after the tier, at the end)")
+    for line in lines:
+        print("  " + line, flush=True)
+    print("  during the timings: " + smi.summary(), flush=True)
+
+
+def g_rows(edges=True, other=None):
+    """Kernel G alone, on the card (under a minute with the build):
+    `python3 -c "import chip_smoke as cs; cs.g_rows()"` from a checkout's
+    root.  kernel_g on [2M,10] lanes of 150-nt rows (random codes, zero
+    past nt 150) against the same rows rolled by one, random [262144,64]
+    and [2M,1]: device time, CUDA-event time, plain time, bound and the
+    wrapper's host time a call; with `edges`, G's edge cases.  Another
+    checkout's G (e.g. the parent commit unpacked by `git archive` into
+    build/parent/) is timed by copying this file to its root and running
+    g_rows(edges=False) there, or, in turns with this one's in one
+    process, by g_rows(other='build/parent') from this root."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    timer, lines = Timer(torch), []
+    rng = np.random.default_rng(0)
+    words = card_lanes(torch, rng, 2_000_000, 10)
+    words[:, 9] &= (1 << 2 * (150 - 144)) - 1
+    with SmiSampler() as smi:
+        kernel_g(torch, timer, lines, words, rng, edges, other)
     for line in lines:
         print("  " + line, flush=True)
     print("  during the timings: " + smi.summary(), flush=True)
@@ -2103,8 +2221,16 @@ def phase_batch(torch, main_path, workdir, found):
     d, ham_s = wall(b.hamming, b2)
     if not np.array_equal(d.cpu().numpy(), hit.sum(axis=1)):
         raise AssertionError("hamming differs from the known substitutions")
-    lines.append(f"hamming: {ham_s:.3f} s, {int(hit.sum())} known "
-                 "substitutions found")
+    # The wall is the length check's sync and host time; G's launch is
+    # timed apart (outside the counted run), by CUDA events and by
+    # torch.profiler (which, this late in the process, may drop it).
+    g_ms = timer([lambda: hamming.hamming_rows(b.words, b2.words)])[0]
+    split = launch_split(torch, lambda: hamming.hamming_rows(b.words,
+                                                             b2.words),
+                         ("hamming_rows",), runs=10)
+    lines.append(f"hamming: {ham_s * 1e3:.3f} ms, {int(hit.sum())} known "
+                 f"substitutions found; kernel G {g_ms:.4f} ms (CUDA "
+                 f"events), {split}")
     del b2, d, hit, mat2, sub
 
     # pairwise: a 4096-row block against 131,072 rows (a 2 GB slab), by

@@ -248,6 +248,8 @@ _CUDA_SIGNATURES = {
                        _P],
     # a, b, out, n, w, stream
     "ssq_hamming_rows": [_P, _P, _P, _I64, _I32, _P],
+    # w -> rows a block of ssq_hamming_rows owns
+    "ssq_hamming_block_rows": [_I32],
     # words, lengths, weights, scratch, send_words, send_lengths,
     # send_weights, overflow, n, w, d, cap, tile_rows, n_tiles, vec_bytes,
     # one_pass, zeroed, stream

@@ -154,34 +154,130 @@ __global__ void __launch_bounds__(kTrimThreads)
 // ---------------------------------------------------------------------------
 // G: row-wise hamming, [N, W] x [N, W] uint32 -> [N] int32.
 //
-// Bound by HBM reads (8 B per lane pair, 4 B written per row).  Kernel A's
-// layout: a group of G = min(32, pow2 >= W) neighbouring lanes of a warp
-// per row, so a warp's loads are contiguous; each lane takes
-// c = a ^ b, ((c >> 1) | c) & 0x55555555, __popc, and the group sums by
-// __shfl_xor_sync - no shared memory, no atomics.
+// Per lane c = a ^ b, ((c >> 1) | c) & 0x55555555, __popc, summed over
+// the row.  Bound by HBM bytes: 8 B read per lane pair and 4 B written
+// per row (the bound's ceil(W / 2) popcounts a row take ~1/20 of that
+// time).  A byte-bound kernel falls short when too few bytes are in
+// flight, so G takes kernel A's validate layout: threads flat over words,
+// a block owning a run of block_rows rows (a multiple of 4, about
+// kHamBlockWords words), so no row crosses a block: no reduction across
+// blocks, no global atomic, no memset, one launch a call.  Each thread
+// issues kHamLoads 16-byte streaming loads of a and as many of b before
+// it uses any (32 B of each operand in flight a thread).  A group of 4
+// words spans at most 2 rows when W >= 4 (4 rows at W = 1): its row comes
+// from one float multiply (exact below 2^20 words a block, as in kernel
+// A), its popcounts are summed per row in registers, and each nonzero sum
+// is added to its row's sum in shared memory.  After one barrier the
+// block's sums leave as 16-byte streaming stores.  With block_rows % 4 ==
+// 0, a block's spans of a, b and out start on 16 bytes whenever the base
+// pointers do; otherwise (a row slice such as b[1:] at W = 10) the
+// instance with 4-byte loads and stores runs the same code.  The last
+// block's words past a multiple of 4 load one by one.  Measured on the
+// H100 (PERF.md): 128 threads x 4 loads, 64 x 4 on 1024-word blocks, 256
+// x 4 and 128 x 4 on 4096-word blocks, and the loads issued before the
+// barrier that zeroes the sums all came within 2% of this shape; a
+// warp-segmented reduction of the row sums (__match_any_sync,
+// __reduce_add_sync) was 20% slower at W = 10, and loads without the
+// streaming hint or with an L2::256B prefetch hint 3-9% slower.
 // ---------------------------------------------------------------------------
 
-template <int G>
-__global__ void hamming_rows_kernel(const uint32_t* __restrict__ a,
-                                    const uint32_t* __restrict__ b,
-                                    int32_t* __restrict__ out, int64_t n,
-                                    int w) {
-  const int sub = threadIdx.x & (G - 1);
-  const int64_t row =
-      (int64_t)blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
-  int sum = 0;
-  if (row < n) {
-    for (int j = sub; j < w; j += G) {
-      uint32_t c = a[row * w + j] ^ b[row * w + j];
-      c = ((c >> 1) | c) & 0x55555555u;
-      sum += __popc(c);
+constexpr int kHamThreads = 256;
+constexpr int kHamLoads = 2;  // 4-word groups of each operand in flight
+constexpr int kHamBlockWords = 2048;  // words of a block's rows, about
+
+// Rows a block of G owns at width w: a multiple of 4, at least 4.
+int hamming_block_rows(int w) {
+  const int rows = kHamBlockWords / (w > 0 ? w : 1) / 4 * 4;
+  return rows < 4 ? 4 : rows;
+}
+
+// Words p .. p + 3 of a block's span x (p a multiple of 4): one 16-byte
+// load when kVec, else four 4-byte loads; words at or past nw read as 0.
+template <bool kVec>
+__device__ __forceinline__ uint4 load_group(const uint32_t* __restrict__ x,
+                                            int p, int nw) {
+  if (p + 4 <= nw) {
+    if (kVec) return __ldcs(reinterpret_cast<const uint4*>(x + p));
+    return make_uint4(__ldg(x + p), __ldg(x + p + 1), __ldg(x + p + 2),
+                      __ldg(x + p + 3));
+  }
+  return make_uint4(p < nw ? __ldg(x + p) : 0u,
+                    p + 1 < nw ? __ldg(x + p + 1) : 0u,
+                    p + 2 < nw ? __ldg(x + p + 2) : 0u, 0u);
+}
+
+__device__ __forceinline__ int lane_distance(uint32_t a, uint32_t b) {
+  const uint32_t c = a ^ b;
+  return __popc(((c >> 1) | c) & 0x55555555u);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kHamThreads)
+    hamming_rows_kernel(const uint32_t* __restrict__ a,
+                        const uint32_t* __restrict__ b,
+                        int32_t* __restrict__ out, int64_t n, int w,
+                        int block_rows) {
+  extern __shared__ __align__(16) int s_sum[];  // [block_rows]
+  const int tid = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * block_rows;
+  const int rows = (int)min((int64_t)block_rows, n - row0);
+  const int nw = rows * w;
+  const bool fast_div = nw < (1 << 20);
+  const float inv_w = 1.0f / (float)w;
+  const uint32_t* ba = a + row0 * w;
+  const uint32_t* bb = b + row0 * w;
+  for (int r = tid; r < rows; r += kHamThreads) s_sum[r] = 0;
+  __syncthreads();
+  for (int base = 0; base < nw; base += 4 * kHamThreads * kHamLoads) {
+    uint4 va[kHamLoads], vb[kHamLoads];
+#pragma unroll
+    for (int k = 0; k < kHamLoads; ++k) {
+      const int p = base + 4 * (k * kHamThreads + tid);
+      if (p < nw) {
+        va[k] = load_group<kVec>(ba, p, nw);
+        vb[k] = load_group<kVec>(bb, p, nw);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kHamLoads; ++k) {
+      const int p = base + 4 * (k * kHamThreads + tid);
+      if (p >= nw) continue;
+      int r = fast_div ? __float2int_rz((p + 0.5f) * inv_w) : p / w;
+      int j = p - r * w;
+      const int d[4] = {lane_distance(va[k].x, vb[k].x),
+                        lane_distance(va[k].y, vb[k].y),
+                        lane_distance(va[k].z, vb[k].z),
+                        lane_distance(va[k].w, vb[k].w)};
+      // Words past nw are 0 in both operands: they add nothing to any row.
+      int s = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s += d[e];
+        if (++j == w) {
+          if (s) atomicAdd(s_sum + r, s);
+          s = 0;
+          j = 0;
+          ++r;
+        }
+      }
+      if (s) atomicAdd(s_sum + r, s);
     }
   }
-  // Every lane of the warp reaches the shuffles (rows past n carry 0).
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (row < n && sub == 0) out[row] = sum;
+  __syncthreads();
+  int32_t* dst = out + row0;
+  if (kVec) {
+    for (int q = tid; 4 * q < rows; q += kHamThreads) {
+      const int o = 4 * q;
+      if (o + 4 <= rows) {
+        __stcs(reinterpret_cast<int4*>(dst + o),
+               *reinterpret_cast<const int4*>(s_sum + o));
+      } else {
+        for (int e = o; e < rows; ++e) dst[e] = s_sum[e];
+      }
+    }
+  } else {
+    for (int r = tid; r < rows; r += kHamThreads) __stcs(dst + r, s_sum[r]);
+  }
 }
 
 }  // namespace
@@ -218,26 +314,25 @@ int ssq_trim_words(const void* words, const void* lengths, const void* starts,
   return (int)cudaGetLastError();
 }
 
+int ssq_hamming_block_rows(int w) { return hamming_block_rows(w); }
+
 int ssq_hamming_rows(const void* a, const void* b, void* out, int64_t n,
                      int w, void* stream) {
   if (n == 0) return 0;
-  const int threads = 256;
-  int g = 1;
-  while (g < w && g < 32) g <<= 1;
-  const int64_t rows_per_block = threads / g;
-  const dim3 grid((unsigned)((n + rows_per_block - 1) / rows_per_block));
+  const int block_rows = hamming_block_rows(w);
+  const dim3 grid((unsigned)((n + block_rows - 1) / block_rows));
+  const size_t smem = (size_t)block_rows * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
   auto av = (const uint32_t*)a;
   auto bv = (const uint32_t*)b;
   auto ov = (int32_t*)out;
-  switch (g) {
-    case 1: hamming_rows_kernel<1><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-    case 2: hamming_rows_kernel<2><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-    case 4: hamming_rows_kernel<4><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-    case 8: hamming_rows_kernel<8><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-    case 16: hamming_rows_kernel<16><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-    default: hamming_rows_kernel<32><<<grid, threads, 0, s>>>(av, bv, ov, n, w); break;
-  }
+  // 16-byte loads and stores only when every base pointer allows them.
+  if (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) % 16 == 0)
+    hamming_rows_kernel<true><<<grid, kHamThreads, smem, s>>>(
+        av, bv, ov, n, w, block_rows);
+  else
+    hamming_rows_kernel<false><<<grid, kHamThreads, smem, s>>>(
+        av, bv, ov, n, w, block_rows);
   return (int)cudaGetLastError();
 }
 

@@ -35,7 +35,9 @@ def hamming_rows_plain(a_words: torch.Tensor,
 
 def hamming_rows(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
     """Row-wise hamming: `[N, W] x [N, W] -> [N]` int32 (kernel G).  A CUDA
-    tensor launches the kernel; a CPU tensor takes the plain version."""
+    tensor launches the kernel once (16-byte loads when both operands
+    start on 16 bytes, 4-byte loads for other contiguous views, such as a
+    row slice); a CPU tensor takes the plain version."""
     if a_words.dim() != 2 or a_words.shape != b_words.shape:
         raise ValueError(f"row hamming operands must both be [N, W], got "
                          f"{tuple(a_words.shape)} and {tuple(b_words.shape)}")

@@ -122,6 +122,19 @@ class TestPackedBatch:
         for i in range(20):
             assert dist[i] == sum(x != y for x, y in zip(a[i], b[i]))
 
+    def test_hamming_row_views(self, rng):
+        # Row slices 1 row off the base (40 B at 150 nt: off 16-byte
+        # alignment, the kernel's 4-byte instance on the card).
+        a = [rand_sequence(rng, 150) for _ in range(41)]
+        b = [s[:70] + rand_sequence(rng, 10) + s[80:] for s in a]
+        (ta, ja), (tb_, jb_) = both(a), both(b)
+        dist = ta[1:].hamming(tb_[1:])
+        assert tuple(dist.shape) == (40,)
+        np.testing.assert_array_equal(dist.numpy(),
+                                      np.asarray(ja[1:].hamming(jb_[1:])))
+        for i in range(40):
+            assert dist[i] == sum(x != y for x, y in zip(a[i + 1], b[i + 1]))
+
     def test_hamming_length_mismatch_raises(self):
         with pytest.raises(Exception, match="equal length"):
             st.pack_batch(["ACGT"], device="cpu").hamming(

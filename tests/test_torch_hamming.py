@@ -42,12 +42,13 @@ def _near(words, seed, max_subs=8):
     return out
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 10, 33, 64])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 10, 16, 33, 63, 64])
 def test_hamming_rows_matches_jax(w):
-    a = _rand_words(300, w, w)
-    b = np.concatenate([_near(a[:150], w + 1), _rand_words(150, w, w + 2)])
+    # 301 rows: not a multiple of the kernel's 4-word groups.
+    a = _rand_words(301, w, w)
+    b = np.concatenate([_near(a[:150], w + 1), _rand_words(151, w, w + 2)])
     got = th.hamming_rows(from_numpy_u32(a), from_numpy_u32(b))
-    assert got.dtype == torch.int32 and tuple(got.shape) == (300,)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (301,)
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(jh.hamming_rows(a, b)))
 
@@ -89,14 +90,17 @@ def test_onehot_pairwise_matches_jax_mxu(w):
 @pytest.mark.parametrize("n,w", [(1, 1), (1000, 2), (4097, 10), (333, 33),
                                  (2000, 64)])
 def test_row_kernel_matches_plain_on_card(cuda, n, w):
-    a = _rand_words(n, w, n)
-    b = np.concatenate([_near(a[:n // 2], n + 1), _rand_words(n - n // 2, w,
-                                                              n + 2)])
+    # The rows as they are, then both operands 1 row off the base (off 16
+    # bytes unless 4 divides W: the kernel's 4-byte instance), then one.
+    a = _rand_words(n + 1, w, n)
+    b = np.concatenate([_near(a[:n // 2], n + 1),
+                        _rand_words(n + 1 - n // 2, w, n + 2)])
     at, bt = from_numpy_u32(a).to(cuda), from_numpy_u32(b).to(cuda)
-    before = th.hamming_rows.launches
-    got = th.hamming_rows(at, bt)
-    assert th.hamming_rows.launches == before + 1
-    assert torch.equal(got, th.hamming_rows_plain(at, bt))
+    for x, y in ((at[:n], bt[:n]), (at[1:], bt[1:]), (at[1:], bt[:n])):
+        before = th.hamming_rows.launches
+        got = th.hamming_rows(x, y)
+        assert th.hamming_rows.launches == before + 1
+        assert torch.equal(got, th.hamming_rows_plain(x, y))
 
 
 @pytest.mark.parametrize("w", [1, 2, 10, 64])
