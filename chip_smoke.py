@@ -109,16 +109,31 @@ Phases, one line each; any failure raises and exits nonzero:
              65536 and file 2's [2M,64] at D = 8, timed with CUDA events
              and torch.profiler, its wrapper's host time a call); the lazy
              reads (K8) on file 1's table timed
+  umi_mesh   the sharded UMI dedup under a one-rank NCCL group (file://
+             init): dedup_umis(mesh=) on umi_scale's 300,000 UMIs equal to
+             the no-mesh call (both walls, median of 3 in turns),
+             dedup_reads(mesh=) on umi_cli's 1M reads equal to no mesh,
+             umi_scale's fan UMIs at threshold 2 under the mesh (H, B and
+             C launched) equal to device="cpu"; kernel H at the row bands
+             of 2, 4 and 8 ranks (UMI_BANDS), each exact against the
+             whole-matrix call, with event and device times beside its
+             popcount bound; A, E, G and unique_count under torch.profiler,
+             each launch inside its ssq.* range, and A's and G's wrapper
+             host time with and without the range; count's file 3 counted
+             as a fresh process's first call, 3 times with the CUDA warmup
+             thread and 3 without, in turns
   counters   kernels A to H and K10 all launched while phases umi_scale,
-             umi_cli, count, batch and sharded drove the main path (counts
-             reset just before each run), H in umi_scale and umi_cli, B +
-             C in umi_scale's overflow tier, D during count, A in
+             umi_cli, count, batch, sharded and umi_mesh drove the main
+             path (counts reset just before each run), H in umi_scale,
+             umi_cli and umi_mesh, B + C in the overflow tier of umi_scale
+             and umi_mesh, D during count, A in
              count_matrix_device, A's pack-only mode, E, F and G in batch,
              K10 in sharded, and the pairwise choice in batch; all three
              merge tiers taken; the native host library loaded, the UMI
              matrix paths, the count path's device engine, 4-chunk
-             transfer and streamed slices, count_fastq_sharded and
-             read_and_count_fastq_distributed all taken
+             transfer and streamed slices, count_fastq_sharded,
+             read_and_count_fastq_distributed and neighbors_sharded_step
+             all taken
 
 Before the last line it prints a JSON object of per-kernel results; the
 last line is {"ok": true, "device": {"platform": "gpu", ...}}.  Random
@@ -481,7 +496,7 @@ def kernel_checks(torch, results, lines):
     del aw, bw
     torch.cuda.empty_cache()
     results["pairwise_hamming"] = dict(
-        replaces="shortseq_tpu/ops/pallas_kernels.py:75",
+        replaces="shortseq_tpu/ops/pallas_kernels.py:76",
         max_abs_err=max(errs + [err]), ms=t[0], plain_ms=t[1],
         bound_ms=bnd[0], bound_by=bnd[1], library_ms=t[2])
 
@@ -1141,17 +1156,28 @@ def d_edge_cases(tile):
 
 
 def launch_split(torch, fn, tags, runs=3):
-    """Device ms a launch of fn's launches whose kernel names hold each
-    tag (for D: tile, finish, and the fills of its scratch; for H: the
-    lists and the merge), from torch.profiler over `runs` calls, beside
-    the launches it saw of each tag.  Every tag's time is divided by the
-    launches seen, never by `runs`, so a profile that drops a call's
-    events cannot shrink it, and the count shows that it did.  The
-    profile idles 50 ms on each side of the calls: late in a long
-    process the profiler has dropped the launches of a call's first
-    millisecond or so, as if the card's clock had drifted from the
-    host's.  L2 is flushed before each call by an add over 128 MiB,
-    which no tag matches."""
+    """launch_times as text: each tag's device ms a launch and the
+    launches seen in `runs` calls."""
+    split = launch_times(torch, fn, tags, runs)
+    if not split:
+        return "launch split not measured (the profiler saw no device time)"
+    return f"device ms a launch (launches seen in {runs} calls): " + \
+        ", ".join(f"{k} {ms:.4f} ms x {seen}"
+                  for k, (ms, seen) in split.items())
+
+
+def launch_times(torch, fn, tags, runs=3):
+    """{tag: (device ms a launch, launches seen)} of fn's launches whose
+    kernel names hold each tag (for D: tile, finish, and the fills of its
+    scratch; for H: the lists and the merge), from torch.profiler over
+    `runs` calls; empty when the profiler saw no device time.  Every
+    tag's time is divided by the launches seen, never by `runs`, so a
+    profile that drops a call's events cannot shrink it, and the count
+    shows that it did.  The profile idles 50 ms on each side of the
+    calls: late in a long process the profiler has dropped the launches
+    of a call's first millisecond or so, as if the card's clock had
+    drifted from the host's.  L2 is flushed before each call by an add
+    over 128 MiB, which no tag matches."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -1174,10 +1200,8 @@ def launch_split(torch, fn, tags, runs=3):
                 split[tag] = split.get(tag, 0.0) + us / 1000
                 seen[tag] = seen.get(tag, 0) + e.count
     if not any(split.values()):
-        return "launch split not measured (the profiler saw no device time)"
-    return f"device ms a launch (launches seen in {runs} calls): " + \
-        ", ".join(f"{k} {v / seen[k]:.4f} ms x {seen[k]}"
-                  for k, v in split.items())
+        return {}
+    return {k: (v / seen[k], seen[k]) for k, v in split.items()}
 
 
 def kernel_d(torch, timer, rng, lines):
@@ -2011,8 +2035,16 @@ def count_files(workdir):
     write_fastq(files["2m_150nt_zipf"][0],
                 mols[zipf_pick(rng, 200_000, 2_000_000)])
     del mols
-    # 3: 1M reads of 0-300 nt (all three buckets, empty reads) drawn from
-    # a pool of 300k reads.
+    files["1m_0-300nt"] = mixed_file(workdir)
+    return files
+
+
+def mixed_file(workdir):
+    """The count phase's file 3: 1M reads of 0-300 nt (all three buckets,
+    empty reads) drawn from a pool of 300k reads.  Returns (path, reads)."""
+    import numpy as np
+
+    alpha = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(2)
     pool_len = rng.integers(0, 301, size=300_000)
     pool = alpha[rng.integers(0, 4, size=int(pool_len.sum()))]
@@ -2020,9 +2052,9 @@ def count_files(workdir):
     lens = pool_len[pick]
     col = np.arange(int(lens.sum())) - np.repeat(np.cumsum(lens) - lens, lens)
     seqs = pool[np.repeat((np.cumsum(pool_len) - pool_len)[pick], lens) + col]
-    files["1m_0-300nt"] = (Path(workdir) / "reads_mixed.fastq", len(lens))
-    write_fastq_ragged(files["1m_0-300nt"][0], seqs, lens)
-    return files
+    path = Path(workdir) / "reads_mixed.fastq"
+    write_fastq_ragged(path, seqs, lens)
+    return path, len(lens)
 
 
 def phase_count(torch, main_path, workdir, found):
@@ -2519,6 +2551,368 @@ def phase_sharded(torch, main_path, workdir, found, results):
         print("  " + line, flush=True)
     return "all checks passed"
 
+# The 100,000-unique problem's row bands at D ranks: (D, rank, rows,
+# padded columns).  Its block is 2688, so the padding quantum is 2688 * D:
+# 102144 columns at D = 1 and 2, 107520 at D = 4 and 8.  D = 38 gives one
+# block a rank: kernel H's band shape of phase kernels, re-timed here.
+UMI_BANDS = ((2, 0, 51072, 102144), (4, 0, 26880, 107520),
+             (8, 0, 13440, 107520), (8, 7, 5920, 107520),
+             (38, 7, 2688, 102144))
+
+
+def h_bands(torch, lines):
+    """Kernel H at the row bands ranks get of the 100,000-unique 12-nt
+    problem (threshold 1, k = 16), each exact against its rows of the
+    whole-matrix call at the same padded column count, timed by CUDA
+    events and torch.profiler beside its popcount bound."""
+    import numpy as np
+
+    from shortseq_torch.umi import dedup
+
+    timer = Timer(torch)
+    u = 100_000
+    words, lengths = dedup._pack_validate_umis(rand_umis(u, 12, seed=0),
+                                               "cuda")
+    whole = {}
+    for d, rank, rows, u_pad in UMI_BANDS:
+        if u_pad not in whole:
+            w = torch.zeros((u_pad, 2), dtype=torch.int32, device="cuda")
+            w[:u] = words
+            ln = torch.full((u_pad,), -1, dtype=torch.int32, device="cuda")
+            ln[:u] = torch.from_numpy(lengths.astype(np.int32)).cuda()
+            g = torch.zeros(u_pad, dtype=torch.int32, device="cuda")
+            r = torch.arange(u_pad, dtype=torch.int32, device="cuda")
+            cols = (w, ln, g)
+            whole[u_pad] = (cols, r, dedup.neighbor_lists_fused(
+                w[:u], ln[:u], g[:u], r[:u], *cols, 1, 16))
+        cols, r, (idx, cnt) = whole[u_pad]
+        lo = rank * (u_pad // d)
+        hi = min(lo + u_pad // d, u)
+        if hi - lo != rows:
+            raise AssertionError(f"D = {d} rank {rank}: {hi - lo} rows")
+        args = (*(t[lo:hi] for t in cols), r[lo:hi], *cols, 1, 16)
+        got = dedup.neighbor_lists_fused(*args)
+        exact(f"H band D={d} rank {rank}", got, (idx[lo:hi], cnt[lo:hi]))
+        ms, = timer([lambda: dedup.neighbor_lists_fused(*args)])
+        # Late in a long process the profiler sometimes sees none of the
+        # launches: one more profile of more calls then.
+        split = launch_times(torch, lambda: dedup.neighbor_lists_fused(*args),
+                             ("neighbor_lists", "neighbor_merge")) \
+            or launch_times(torch, lambda: dedup.neighbor_lists_fused(*args),
+                            ("neighbor_lists", "neighbor_merge"), runs=10)
+        dev = sum(t for t, _ in split.values()) if split else None
+        bnd = bound(args[:7], got, popc=rows * u_pad)
+        lines.append(
+            f"H band D={d} rank {rank} [{rows}]x[{u_pad}] k=16 threshold 1: "
+            f"{ms:.4f} ms ({bnd[0] / ms:.0%} of bound), device "
+            + (f"{dev:.4f} ms ({bnd[0] / dev:.0%})" if dev else "not measured")
+            + f"; {bound_text(bnd)}; exact against the whole matrix; "
+            + ", ".join(f"{k} {t:.4f} ms x {n}" for k, (t, n) in split.items()))
+
+
+def scoped_launches(torch, workdir, lines):
+    """Kernels A, E, G and D (unique_count) once each under torch.profiler
+    (CPU and CUDA): every launch of each kernel must come from inside its
+    wrapper's ssq.* range, read from the Chrome trace (the runtime call of
+    the kernel's correlation id within the range's host interval).  Then
+    the host time a call of A's and G's wrappers with no profiler active,
+    with their ranges (the `scoped` wrapper) and without (the function it
+    wraps), in turns (median of 5 each), and of `scoped` around an empty
+    function, which leaves out the wrappers' own spread."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from shortseq_torch.count.device import unique_count
+    from shortseq_torch.ops import bitpack, hamming
+    from shortseq_torch.utils.profiling import scoped
+
+    rng = np.random.default_rng(4)
+    x = card_lanes(torch, rng, 4096, 8)
+    ln = torch.full((4096,), 32, dtype=torch.int32, device="cuda")
+    words = card_lanes(torch, rng, 4096, 2)
+    ones = torch.ones(4096, dtype=torch.int32, device="cuda")
+    calls = (("ssq.pack_validate", "pack_validate_kernel",
+              lambda: bitpack.pack_and_validate_u32(x, ln)),
+             ("ssq.unpack", "unpack_ascii_kernel",
+              lambda: bitpack.unpack_ascii(words)),
+             ("ssq.hamming_rows", "hamming_rows_kernel",
+              lambda: hamming.hamming_rows(words, words)),
+             ("ssq.unique_count", "group_tile_kernel",
+              lambda: unique_count(words, ln, ones)))
+    for _, _, fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(3):
+            for _, _, fn in calls:
+                fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    path = Path(workdir) / "scopes.trace.json"
+    prof.export_chrome_trace(str(path))
+    ranges, launched, kernels = {}, {}, []
+    for e in json.loads(path.read_text())["traceEvents"]:
+        cat, args = str(e.get("cat", "")).lower(), e.get("args") or {}
+        if cat == "user_annotation":
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0)))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            launched[args.get("correlation")] = e["ts"]
+        elif cat == "kernel":
+            kernels.append((e["name"], args.get("correlation")))
+    seen = []
+    for scope, name, _ in calls:
+        mine = [c for k, c in kernels if name in k]
+        inside = [c for c in mine if c in launched and any(
+            a <= launched[c] <= b for a, b in ranges.get(scope, ()))]
+        if not mine or len(inside) != len(mine):
+            raise AssertionError(f"{name}: {len(inside)} of {len(mine)} "
+                                 f"launches inside {scope}")
+        seen.append(f"{name} {len(inside)}/{len(mine)} in {scope}")
+    lines.append("under torch.profiler, every launch inside its range: "
+                 + ", ".join(seen))
+
+    a, g = x[:1024], card_lanes(torch, rng, 1024, 10)
+    for name, fn, args in (("A [1024,8]", bitpack.pack_and_validate_u32,
+                            (a, ln[:1024])),
+                           ("G [1024,10]", hamming.hamming_rows, (g, g))):
+        times = {"range": [], "no range": []}
+        for _ in range(5):
+            for tag, f in (("range", fn), ("no range", fn.__wrapped__)):
+                times[tag].append(host_us(torch, lambda: f(*args), 2000))
+        with_r, without = (statistics.median(t) for t in times.values())
+        lines.append(f"{name} wrapper host time, no profiler active: "
+                     f"{with_r:.2f} us a call with its range, {without:.2f} "
+                     f"us without ({with_r - without:+.2f} us; "
+                     + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in t)
+                                 for k, t in times.items()) + ")")
+    def empty():
+        return None
+
+    times = {"scoped": [], "alone": []}
+    for _ in range(5):
+        for tag, f in (("scoped", scoped("ssq.empty")(empty)),
+                       ("alone", empty)):
+            times[tag].append(host_us(torch, f, 20000))
+    cost = statistics.median(times["scoped"]) - statistics.median(
+        times["alone"])
+    lines.append("an empty function, no profiler active: " + ", ".join(
+        f"{k} {statistics.median(t):.3f} us a call" for k, t in times.items())
+        + f" (the range's cost {cost:+.3f} us)")
+    lines.append(f"torch {torch.__version__}: autograd profiler flag "
+                 + ("present" if hasattr(torch.autograd.profiler,
+                                         "_is_profiler_enabled")
+                    else "absent (the C++ query)"))
+
+
+_FIRST_CALL = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+sys.path.insert(0, sys.argv[1])
+import shortseq_torch as st
+if sys.argv[3] == "torch warmup":
+    # The thread without the driver API: torch's op creates the context.
+    from shortseq_torch.utils import warmup
+    warmup._primary_context = lambda index: True
+t2 = time.perf_counter()
+table = st.read_and_count_fastq_table(sys.argv[2], engine="device")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print(json.dumps({"import_torch": t1 - t0, "first_call": t3 - t2,
+                  "rows": len(table)}))
+"""
+
+
+_CONTEXT = r"""
+import json, time
+import torch
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda").cpu()
+print(json.dumps({"context": time.perf_counter() - t0}))
+"""
+
+
+def warmup_walls(fastq, lines, arms=("warmup", "no warmup"), rounds=3):
+    """`rounds` rounds of fresh processes, one an arm in turns, each
+    counting `fastq` with the device engine as its first use of the card:
+    with the CUDA warmup thread, with SHORTSEQ_TORCH_NO_WARMUP=1, or
+    ("torch warmup") with the thread's context made by a torch op instead
+    of the driver API.  The first call's wall (after `import torch`, timed
+    apart) of each; then one process that times what the thread does
+    alone (the context and a first copy), the most the warmup can hide."""
+    import os
+
+    walls = {arm: [] for arm in arms}
+    rows = set()
+    for _ in range(rounds):
+        for tag in walls:
+            env = {k: v for k, v in os.environ.items()
+                   if k != "SHORTSEQ_TORCH_NO_WARMUP"}
+            if tag == "no warmup":
+                env["SHORTSEQ_TORCH_NO_WARMUP"] = "1"
+            proc = subprocess.run(
+                [sys.executable, "-c", _FIRST_CALL, str(ROOT), str(fastq),
+                 tag], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=60)
+            if proc.returncode != 0:
+                raise RuntimeError(f"first call ({tag}) exit "
+                                   f"{proc.returncode}: {proc.stderr[-2000:]}")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            walls[tag].append((got["first_call"], got["import_torch"]))
+            rows.add(got["rows"])
+    if len(rows) != 1:
+        raise AssertionError(f"first calls disagree: {rows} rows")
+    proc = subprocess.run([sys.executable, "-c", _CONTEXT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"context alone exit {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    context = json.loads(proc.stdout.strip().splitlines()[-1])["context"]
+    lines.append(f"the CUDA context and a first copy alone, in a fresh "
+                 f"process: {context:.3f} s")
+    for tag, w in walls.items():
+        first = [c for c, _ in w]
+        lines.append(f"first call, {tag}: " + ", ".join(
+            f"{c:.3f} s" for c in first) + f" (median "
+            f"{statistics.median(first):.3f} s, quartiles "
+            f"{quartiles(first)} s; import torch "
+            + ", ".join(f"{t:.3f}" for _, t in w) + " s)")
+    if "no warmup" in walls:
+        none = [c for c, _ in walls["no warmup"]]
+        for tag, w in walls.items():
+            if tag != "no warmup":
+                wins = sum(c < n for (c, _), n in zip(w, none))
+                lines.append(f"{tag} faster than no warmup in {wins} of "
+                             f"{len(none)} rounds")
+
+
+def phase_umi_mesh(torch, main_path, workdir, fastq):
+    """The sharded UMI dedup under a one-rank NCCL group: dedup_umis and
+    dedup_reads with mesh= against the no-mesh calls on the card, the
+    overflow tier under the mesh against the CPU, kernel H at the bands
+    of 2, 4 and 8 ranks, the ssq.* ranges under the profiler and their
+    host cost, and the CUDA warmup's first-call walls on `fastq`.  Its
+    lines are printed even when a check fails."""
+    lines = []
+    try:
+        umi_mesh_checks(torch, main_path, workdir, fastq, lines)
+    finally:
+        for line in lines:
+            print("  " + line, flush=True)
+    return "all checks passed"
+
+
+def umi_mesh_checks(torch, main_path, workdir, fastq, lines):
+    import numpy as np
+
+    from shortseq_torch.dist import mesh as dm
+    from shortseq_torch.umi import dedup
+
+    def same(got, want, what):
+        if not (np.array_equal(got[0], want[0]) and got[1] == want[1]):
+            raise AssertionError(f"{what}: mesh= differs from no mesh")
+
+    def wall(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        return out, time.perf_counter() - t0
+
+    init = Path(workdir) / "pg_umi"
+    init.unlink(missing_ok=True)
+    dm.initialize_distributed(init_method=f"file://{init}", rank=0,
+                              world_size=1, device="cuda", timeout=300)
+    try:
+        mesh = dm.data_mesh(device="cuda")
+        backend = torch.distributed.get_backend()
+        if not (mesh.distributed and mesh.size == 1 and backend == "nccl"
+                and mesh.device.type == "cuda"):
+            raise AssertionError(f"mesh {mesh}, backend {backend}")
+
+        umis = rand_umis(100_000, 12, seed=0) * 3
+        kw = dict(threshold=1, method="directional")
+        got = main_path.run("umi_mesh", dedup.dedup_umis, umis, mesh=mesh,
+                            **kw)
+        want = dedup.dedup_umis(umis, device="cuda", **kw)
+        same(got, want, "dedup_umis 100,000 unique x 3")
+        walls = {"mesh": [], "no mesh": []}
+        for _ in range(3):
+            walls["no mesh"].append(wall(dedup.dedup_umis, umis,
+                                         device="cuda", **kw)[1])
+            walls["mesh"].append(wall(dedup.dedup_umis, umis, mesh=mesh,
+                                      **kw)[1])
+        lines.append(
+            f"dedup_umis, {len(umis)} UMIs (100,000 unique), equal to no "
+            "mesh: " + "; ".join(
+                f"{k} {statistics.median(v):.3f} s (" + ", ".join(
+                    f"{x:.3f}" for x in v) + ")" for k, v in walls.items()))
+
+        mat, _ = make_reads(1_000_000, 100_000)
+        got, mesh_s = wall(main_path.run, "umi_mesh", dedup.dedup_reads, mat,
+                           len_5p=8, mesh=mesh)
+        want, plain_s = wall(dedup.dedup_reads, mat, len_5p=8, device="cuda")
+        same(got, want, "dedup_reads 1M reads")
+        lines.append(f"dedup_reads, 1,000,000 reads -> {len(got[1])} "
+                     f"molecules, equal to no mesh: mesh {mesh_s:.3f} s, no "
+                     f"mesh {plain_s:.3f} s")
+
+        fans = fan_umis(200, 12, seed=5)
+        over = main_path.run("umi_mesh", dedup.dedup_umis, fans, threshold=2,
+                             mesh=mesh)
+        ran = main_path.last
+        if not (ran["neighbor_lists_fused"] and ran["pairwise_hamming"]
+                and ran["neighbor_extract"]):
+            raise AssertionError(f"the overflow tier did not run: {ran}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    with SmiSampler() as smi:
+        h_bands(torch, lines)
+    lines.append("during H's band timings: " + smi.summary())
+    scoped_launches(torch, workdir, lines)
+    # The CPU reference after the timings: heavy CPU torch work slows the
+    # host's later launches.
+    same(over, dedup.dedup_umis(fans, threshold=2, device="cpu"),
+         "fan UMIs at threshold 2 (against device='cpu')")
+    lines.append(f"{len(fans)} fan UMIs at threshold 2 under the mesh: "
+                 f"{len(over[1])} clusters, equal to cpu, launches H "
+                 f"{ran['neighbor_lists_fused']}, B {ran['pairwise_hamming']}, "
+                 f"C {ran['neighbor_extract']}")
+    warmup_walls(fastq, lines)
+
+
+def warmup_check(rounds=10):
+    """The CUDA warmup alone, on the card (about five minutes with the
+    build): `python3 -c "import chip_smoke as cs; cs.warmup_check()"`.
+    Writes count's file 3, then warmup_walls with the driver-API thread,
+    the torch-op thread and no thread, `rounds` rounds in turns."""
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    lines = []
+    with tempfile.TemporaryDirectory() as workdir:
+        fastq, _ = mixed_file(workdir)
+        warmup_walls(fastq, lines, ("warmup", "torch warmup", "no warmup"),
+                     rounds)
+    for line in lines:
+        print("  " + line, flush=True)
+
+
+def umi_mesh():
+    """Phase umi_mesh alone, on the card (about two minutes with the
+    build): `python3 -c "import chip_smoke as cs; cs.umi_mesh()"` from a
+    checkout's root.  Writes count's file 3 for the warmup's walls."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    with tempfile.TemporaryDirectory() as workdir:
+        fastq, _ = mixed_file(workdir)
+        phase("umi_mesh", phase_umi_mesh, torch, MainPath(), workdir, fastq)
+
 
 # --- main -------------------------------------------------------------------
 
@@ -2536,6 +2930,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from shortseq_torch.api import counter
     from shortseq_torch.dist import pipeline
+    from shortseq_torch.dist import umi as dist_umi
     from shortseq_torch.io import native
     from shortseq_torch.ops import pairwise
     from shortseq_torch.umi import dedup
@@ -2554,7 +2949,8 @@ def main() -> int:
                          (counter, "_read_and_count_table_streamed"),
                          (counter, "_h2d_chunks"),
                          (pipeline, "count_fastq_sharded"),
-                         (pipeline, "read_and_count_fastq_distributed")):
+                         (pipeline, "read_and_count_fastq_distributed"),
+                         (dist_umi, "neighbors_sharded_step")):
         real = getattr(module, name)
 
         def counted(*a, _real=real, _name=name, **k):
@@ -2573,7 +2969,9 @@ def main() -> int:
         phase("batch", phase_batch, torch, main_path, workdir, found)
         phase("sharded", phase_sharded, torch, main_path, workdir, found,
               results)
-        del found["files"], found["tables"]
+        del found["tables"]
+        phase("umi_mesh", phase_umi_mesh, torch, main_path, workdir,
+              found.pop("files")["1m_0-300nt"][0])
     launches = main_path.launches
 
     def counters():
@@ -2582,14 +2980,17 @@ def main() -> int:
             raise AssertionError(f"kernels never launched: {missing}")
         if main_path.by_phase["count"]["unique_count"] == 0:
             raise AssertionError("kernel D never launched in phase count")
-        umi = {p: main_path.by_phase[p] for p in ("umi_scale", "umi_cli")}
+        umi = {p: main_path.by_phase[p]
+               for p in ("umi_scale", "umi_cli", "umi_mesh")}
         quiet = [p for p, n in umi.items() if n["neighbor_lists_fused"] == 0]
         if quiet:
             raise AssertionError(f"kernel H never launched in {quiet}")
-        if not (umi["umi_scale"]["pairwise_hamming"]
-                and umi["umi_scale"]["neighbor_extract"]):
+        quiet = [p for p in ("umi_scale", "umi_mesh")
+                 if not (umi[p]["pairwise_hamming"]
+                         and umi[p]["neighbor_extract"])]
+        if quiet:
             raise AssertionError("kernels B + C never launched in the "
-                                 "overflow tier of phase umi_scale")
+                                 f"overflow tier of phase {quiet}")
         if found["matrix_pack_validate"] == 0:
             raise AssertionError("kernel A never launched in "
                                  "count_matrix_device")
@@ -2612,7 +3013,8 @@ def main() -> int:
         want = {"_dedup_umi_matrix", "_dedup_reads_matrix",
                 "count_indexed_device_table",
                 "_read_and_count_table_streamed", "_h2d_chunks",
-                "count_fastq_sharded", "read_and_count_fastq_distributed"}
+                "count_fastq_sharded", "read_and_count_fastq_distributed",
+                "neighbors_sharded_step"}
         if set(paths) != want:
             raise AssertionError(f"paths not all taken: {paths}")
         return (f"launches {launches}, in phase umi_scale "
@@ -2620,7 +3022,8 @@ def main() -> int:
                 f"in phase count "
                 f"{main_path.by_phase['count']}, in phase batch {in_batch} "
                 f"(pairwise path {found['batch_pairwise']}), in phase "
-                f"sharded {in_sharded} (merge tiers {found['tiers']}), A in "
+                f"sharded {in_sharded} (merge tiers {found['tiers']}), in "
+                f"phase umi_mesh {umi['umi_mesh']}, A in "
                 f"count_matrix_device {found['matrix_pack_validate']}; "
                 f"K8 calls (torch ops) {main_path.k8_calls}; "
                 f"paths {paths} (_h2d_chunks: buckets sent in 4 chunks)")

@@ -147,6 +147,7 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
     from ..count.ingest import WIDTH_EDGES, bucket_mask
     from ..oracle import first_invalid_char
     from ..ops.bitpack import pack_and_validate_rows
+    from ..utils.warmup import start_transfer_warmup
 
     counts = ShortSeqCounter()
     if len(lengths) == 0:
@@ -154,6 +155,9 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
     if int(np.max(lengths)) > MAX_VAR_NT:
         raise Exception(TOO_LONG_MSG)
     device = _build.resolve_device(device)
+    # The buckets are fetched: overlap the card's one-time set-up with
+    # the host's bucketing (utils/warmup.py).
+    start_transfer_warmup(device)
     for lo, hi, width in WIDTH_EDGES:
         sel = bucket_mask(lengths, lo, hi)
         if not sel.any():
@@ -246,10 +250,14 @@ def count_indexed_device_table(data, starts, lengths, device="cuda"):
     from ..count.device import unique_count
     from ..count.ingest import packed_buckets
     from ..count.table import CountTable
+    from ..utils.warmup import start_transfer_warmup
 
     device = _build.resolve_device(device)
     if len(lengths) == 0:
         return CountTable([])
+    # Overlap the card's one-time set-up with the host gather + pack of
+    # the first bucket (utils/warmup.py).
+    start_transfer_warmup(device)
     tables = []
     for words, sub_len in packed_buckets(data, starts, lengths):
         rows = len(sub_len)
@@ -345,11 +353,14 @@ def _read_and_count_table(filename, engine: str, device):
     and keep the whole-file path, while BGZF files stream block-aligned
     slices (io/bgzf.py)."""
     from ..io.fastq import _is_gzip, read_fastq_index
+    from ..utils.warmup import start_transfer_warmup
 
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine == "device":
         device = _build.resolve_device(device)  # before any host work
+        # The card's one-time set-up overlaps the FASTQ read.
+        start_transfer_warmup(device)
     try:
         size = os.path.getsize(filename)
     except OSError:

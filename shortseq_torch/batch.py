@@ -193,8 +193,10 @@ class PackedBatch:
         there (kernel A) and raising the reference's error on failure."""
         from .oracle import first_invalid_char
         from .ops.bitpack import pack_and_validate_rows
+        from .utils.warmup import start_transfer_warmup
 
         device = _build.resolve_device(device)
+        start_transfer_warmup(device)
         mat, lengths = _ascii_matrix(seqs, width)
         lengths_d = torch.from_numpy(lengths).to(device)
         if len(seqs) == 0:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import scoped
 
 # Sorts after every real length (0..1024).  int32 max keeps it impossible.
 PAD_LENGTH = 2**31 - 1
@@ -174,6 +175,7 @@ def group_count(words, lengths, weights, perm, n_out: int):
 group_count.launches = 0
 
 
+@scoped("ssq.unique_count")
 def unique_count(words: torch.Tensor, lengths: torch.Tensor,
                  weights: torch.Tensor, n_out: int | None = None):
     """Group identical (length, words-row) keys and sum their weights.

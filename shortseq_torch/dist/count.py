@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from .. import _build
 from ..count.device import PAD_LENGTH, unique_count
+from ..utils.profiling import named_scope
 
 _HASH_MUL = 2654435761
 _U32 = 0xFFFFFFFF
@@ -285,8 +286,9 @@ def count_sharded(mesh):
     def run(words, lengths, weights):
         _check_same_shape(mesh, words)
         u_w, u_l, u_c, _ = unique_count(words, lengths, weights)
-        return unique_count(_all_gather(mesh, u_w), _all_gather(mesh, u_l),
-                            _all_gather(mesh, u_c))
+        with named_scope("ssq.merge_allgather"):
+            gathered = [_all_gather(mesh, x) for x in (u_w, u_l, u_c)]
+        return unique_count(*gathered)
 
     return run
 
@@ -318,9 +320,9 @@ def count_sharded_bucketed(mesh, capacity_factor: float = 2.0,
         cap = bucket_capacity(words.shape[0], d, capacity_factor)
         s_w, s_l, s_c, overflow = bucket_send_buffers(words, lengths,
                                                       weights, d, cap)
-        u_w, u_l, u_c, n_u = unique_count(_all_to_all(mesh, s_w),
-                                          _all_to_all(mesh, s_l),
-                                          _all_to_all(mesh, s_c))
+        with named_scope("ssq.bucket_exchange"):
+            received = [_all_to_all(mesh, x) for x in (s_w, s_l, s_c)]
+        u_w, u_l, u_c, n_u = unique_count(*received)
         total = _all_reduce(mesh, n_u, dist.ReduceOp.SUM)
         overflow = _all_reduce(mesh, overflow, dist.ReduceOp.MAX)
         if not replicate:

@@ -59,8 +59,10 @@ def count_fastq_sharded(filename, n_shards: int = 1, host: int = 0,
     """
     from .. import _build
     from ..io.fastq import read_fastq_index
+    from ..utils.warmup import start_transfer_warmup
 
     device = _build.resolve_device(device)
+    start_transfer_warmup(device)
     size = os.path.getsize(filename)
     ckpt = config.checkpoint_dir
     done = set()

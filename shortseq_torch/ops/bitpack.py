@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import scoped
 from .lanes import from_numpy_u32, srl
 
 # Fail bit (0x40 per byte) mask by the count of row bytes left in a lane.
@@ -102,6 +103,7 @@ def _check_lanes_operand(x: torch.Tensor) -> None:
         raise ValueError("x must be 16-byte aligned for vector loads")
 
 
+@scoped("ssq.pack")
 def pack_words_u32(x: torch.Tensor) -> torch.Tensor:
     """Pack `[N, W4]` lanes (W4 % 4 == 0) to `[N, W4 / 4]` words with no
     validation (kernel A in its pack-only mode): every byte packs as
@@ -136,6 +138,7 @@ def pack_rows(mat_u32: np.ndarray, device) -> torch.Tensor:
     return pack_words_u32(x)
 
 
+@scoped("ssq.pack_validate")
 def pack_and_validate_u32(x: torch.Tensor, lengths: torch.Tensor,
                           pad_valid: bool = False):
     """Fused pack + validity mask (kernel A).  A CUDA tensor launches the
@@ -225,6 +228,7 @@ def unpack_ascii_plain(words: torch.Tensor) -> torch.Tensor:
     return table[codes.long()].reshape(n, 16 * w)
 
 
+@scoped("ssq.unpack")
 def unpack_ascii(words: torch.Tensor, out_len: int | None = None):
     """Inverse of pack_words: `[N, W]` words -> `[N, 16 W]` uint8 ASCII
     (kernel E), the first `out_len` columns when given.  Codes decode

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import scoped
 from .lanes import popcount32, srl
 
 
@@ -33,6 +34,7 @@ def hamming_rows_plain(a_words: torch.Tensor,
         dim=-1, dtype=torch.int32)
 
 
+@scoped("ssq.hamming_rows")
 def hamming_rows(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
     """Row-wise hamming: `[N, W] x [N, W] -> [N]` int32 (kernel G).  A CUDA
     tensor launches the kernel once (16-byte loads when both operands
@@ -56,6 +58,7 @@ def hamming_rows(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
 hamming_rows.launches = 0
 
 
+@scoped("ssq.pairwise_jnp")
 def hamming_pairwise(a_words: torch.Tensor,
                      b_words: torch.Tensor) -> torch.Tensor:
     """All-pairs hamming: `[N, W] x [M, W] -> [N, M]` int32.  Broadcasts
@@ -91,6 +94,7 @@ def one_hot_codes(words: torch.Tensor,
     return (codes[..., None] == classes).reshape(n, 64 * w).to(dtype)
 
 
+@scoped("ssq.pairwise_mxu")
 def hamming_pairwise_onehot(a_words: torch.Tensor,
                             b_words: torch.Tensor) -> torch.Tensor:
     """All-pairs hamming as one matrix product: `dist = 16 W - matches`,

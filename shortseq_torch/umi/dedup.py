@@ -25,11 +25,13 @@ Pipeline:
               than k neighbours are re-extracted at _OVERFLOW_K (kernel B
               writes an L2-sized [rows, U] slab a batch, kernel C reduces
               it; every batch queued, one fetch), and rows beyond that
-              take a dense mask fetch.
+              take a dense mask fetch.  With `mesh=`, kernel H's rows split
+              into one band a rank (dist/umi.py), gathered in rank order.
   collapse  - host graph walk over the sparse lists, O(edges).
 
-`device` is explicit everywhere: "cuda" runs the kernels and raises when
-there is no card; "cpu" runs their plain PyTorch versions.
+`device` is explicit everywhere: "cuda" (the default) runs the kernels
+and raises when there is no card; "cpu" runs their plain PyTorch
+versions; with a mesh the device is the mesh's.
 """
 
 from __future__ import annotations
@@ -70,13 +72,28 @@ _EXTRACT_SEGS = 0
 _resolve_device = _build.resolve_device
 
 
+def _dedup_device(device, mesh) -> torch.device:
+    """The device of a dedup call: with a mesh, mesh.device (a `device`
+    that names another one raises ValueError); without, `device` ("cuda"
+    when None, which raises without a card)."""
+    if mesh is None:
+        return _resolve_device("cuda" if device is None else device)
+    if device is not None:
+        d, m = torch.device(device), mesh.device
+        if d.type != m.type or d.index not in (None, m.index):
+            raise ValueError(f"device {d} is not the mesh's device {m}")
+    return mesh.device
+
+
 def _pack_validate_matrix(mat, lengths, device):
     """Pack an [N, <=32] uint8 UMI byte matrix -> [N, 2] int32 words on
     `device` (kernel A), raising the reference's error on any invalid
     base.  Pad bytes are 0x00, which fails the bloom, so the length mask
     is on (pad_valid=False)."""
     from ..constants import UNSUPPORTED_BASE_MSG
+    from ..utils.warmup import start_transfer_warmup
 
+    start_transfer_warmup(device)
     width = 32
     if mat.shape[1] != width:
         mat = np.pad(mat, ((0, 0), (0, width - mat.shape[1])))
@@ -317,8 +334,8 @@ def neighbor_lists_fused(a_words, a_lengths, a_gids, a_rows, words, lengths,
 neighbor_lists_fused.launches = 0
 
 
-def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
-                    device):
+def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
+                    mesh=None, *, device=None):
     """Sparse adjacency: neighbours[i] = indices j != i with
     hamming(i, j) <= threshold, equal lengths, and (optionally) equal
     group ids.  `words` is an int32 tensor or a numpy uint32 array.
@@ -327,8 +344,13 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
     O(U * k + edges), never O(U^2).  Rows with more than k neighbours
     take kernels B + C at a larger cap, all their batches queued and
     fetched once, and rows beyond that a dense mask (on [rows, U] slabs of
-    at most max(_DENSE_ROWS_BATCH, _OVERFLOW_SLAB / U) rows)."""
-    device = torch.device(device)
+    at most max(_DENSE_ROWS_BATCH, _OVERFLOW_SLAB / U) rows).
+
+    With a mesh (dist.data_mesh), the main pass splits into row bands over
+    its ranks (dist/umi.py) on mesh.device, and every rank then runs the
+    overflow tier on the gathered counts, so all ranks return the same
+    lists; every rank calls with the same operands."""
+    device = _dedup_device(device, mesh)
     u = len(lengths)
     if u == 0:
         return []
@@ -339,9 +361,10 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
         # the same column count (kernel C itself needs no rounding).
         block = -(-block // 128) * 128
     k = min(_NEIGHBOR_K, u)
-    # Pad the row count to a multiple of block with rows that match
-    # nothing real (length -1); their lists are sliced off below.
-    u_pad = -(-u // block) * block
+    # Pad the row count to a multiple of block (x ranks) with rows that
+    # match nothing real (length -1); their lists are sliced off below.
+    quantum = block * (mesh.size if mesh is not None else 1)
+    u_pad = -(-u // quantum) * quantum
     if isinstance(words, np.ndarray):
         words = from_numpy_u32(words)
     words = words.to(device)
@@ -354,15 +377,21 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None, *,
     if gids is not None:
         gids_d[:u] = torch.from_numpy(
             np.asarray(gids).astype(np.int32)).to(device)
-    rows_d = torch.arange(u_pad, dtype=torch.int32, device=device)
 
     # The real rows against every column; the pad rows' lists would be
     # sliced off, so they are not computed.
-    idx, cnt = neighbor_lists_fused(words_d[:u], lengths_d[:u], gids_d[:u],
-                                    rows_d[:u], words_d, lengths_d, gids_d,
-                                    threshold, k)
-    idx, cnt = idx.cpu().numpy(), cnt.cpu().numpy()
-    # Empty slots carry the padded column count.
+    if mesh is not None:
+        from ..dist.umi import neighbors_sharded_step
+
+        idx, cnt = neighbors_sharded_step(mesh, threshold, k, block)(
+            words_d, lengths_d, gids_d, u)
+    else:
+        rows_d = torch.arange(u, dtype=torch.int32, device=device)
+        idx, cnt = neighbor_lists_fused(
+            words_d[:u], lengths_d[:u], gids_d[:u], rows_d, words_d,
+            lengths_d, gids_d, threshold, k)
+        idx, cnt = idx.cpu().numpy(), cnt.cpu().numpy()
+    # Empty slots carry the padded column count (the mesh's, with a mesh).
     valid = idx < u_pad
 
     # Columns come out ascending per row; boolean masking flattens
@@ -533,7 +562,7 @@ def split_read(read: bytes, len_5p: int, len_3p: int):
 
 
 def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
-                    candidates=None, block=None, *, device):
+                    candidates=None, block=None, mesh=None, *, device):
     """Shared collapse step: returns root per unique key.  `candidates`
     restricts the (quadratic) adjacency work to the given key indices;
     keys outside it root themselves."""
@@ -549,16 +578,20 @@ def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
         words = words[torch.from_numpy(candidates).to(words.device)]
     sub_gids = gids[candidates] if gids is not None else None
     neighbors = _neighbor_lists(words, lengths[candidates], threshold,
-                                gids=sub_gids, block=block, device=device)
+                                gids=sub_gids, block=block, mesh=mesh,
+                                device=device)
     sub_roots = _collapse(neighbors, counts[candidates], method)
     roots[candidates] = candidates[sub_roots]
     return roots
 
 
 def dedup_umis(umis, threshold: int = 1, method: str = "directional",
-               _block=None, device="cuda"):
+               _block=None, mesh=None, device=None):
     """Collapse a list of UMIs (str/bytes), or an [N, L] uint8 matrix,
-    into clusters on `device`.
+    into clusters on `device` ("cuda" by default; "cpu" runs the plain
+    versions).  With `mesh` (dist.data_mesh), every rank of it calls with
+    the same UMIs, the neighbour search splits into row bands over the
+    ranks on mesh.device, and every rank returns the same result.
 
     Returns (labels, representatives): `labels[i]` is the cluster id of
     input i (ids are indices into `representatives`), and
@@ -568,7 +601,7 @@ def dedup_umis(umis, threshold: int = 1, method: str = "directional",
 
     if method not in _METHODS:
         raise ValueError(f"Unknown method: {method}")
-    device = _resolve_device(device)
+    device = _dedup_device(device, mesh)
     if len(umis) == 0:
         return np.zeros(0, np.int64), []
 
@@ -581,7 +614,7 @@ def dedup_umis(umis, threshold: int = 1, method: str = "directional",
         if umis.shape[1] > MAX_64_NT:
             raise ValueError("UMIs longer than 32 nt are not supported")
         res = _dedup_umi_matrix(np.ascontiguousarray(umis), method,
-                                threshold, _block, device)
+                                threshold, _block, device, mesh)
         if res is not None:
             return res
         matrix_unavailable = True
@@ -599,10 +632,10 @@ def dedup_umis(umis, threshold: int = 1, method: str = "directional",
             res = _dedup_umi_matrix(
                 np.frombuffer(b"".join(norm), np.uint8).reshape(
                     len(norm), lng),
-                method, threshold, _block, device)
+                method, threshold, _block, device, mesh)
         else:
             res = _dedup_umis_ragged(norm, lengths_all, method, threshold,
-                                     _block, device)
+                                     _block, device, mesh)
         if res is not None:
             return res
 
@@ -614,12 +647,12 @@ def dedup_umis(umis, threshold: int = 1, method: str = "directional",
 
     words, lengths = _pack_validate_umis(uniq, device)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=_block, device=device)
+                            block=_block, mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     return labels_u[inverse], [uniq[i] for i in rep_nodes]
 
 
-def _dedup_umi_matrix(mat, method, threshold, block, device):
+def _dedup_umi_matrix(mat, method, threshold, block, device, mesh=None):
     """Vectorized dedup_umis for an [N, L] uint8 UMI matrix.  Returns
     None when the native library is unavailable."""
     res = _unique_rows(mat)
@@ -629,7 +662,7 @@ def _dedup_umi_matrix(mat, method, threshold, block, device):
     lengths = np.full(len(counts), mat.shape[1], np.int32)
     words = _pack_validate_matrix(uniq_mat, lengths, device)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=block, device=device)
+                            block=block, mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     return labels_u[inverse], [uniq_mat[i].tobytes() for i in rep_nodes]
 
@@ -657,7 +690,8 @@ def _flat_rows(norm, lengths_all):
     return flat, offsets[:-1]
 
 
-def _dedup_umis_ragged(norm, lengths_all, method, threshold, block, device):
+def _dedup_umis_ragged(norm, lengths_all, method, threshold, block, device,
+                       mesh=None):
     """Length-bucketed vectorized dedup_umis for ragged UMI lists: UMIs of
     different lengths never cluster, so grouping decomposes exactly by
     length; bucket uniques are re-ranked into global first-occurrence
@@ -696,14 +730,14 @@ def _dedup_umis_ragged(norm, lengths_all, method, threshold, block, device):
     inverse_global = rank[inverse_global]
     words = _pack_validate_matrix(mat, lengths, device)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=block, device=device)
+                            block=block, mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     reps = [mat[i, :lengths[i]].tobytes() for i in rep_nodes]
     return labels_u[inverse_global], reps
 
 
 def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
-                        device):
+                        device, mesh=None):
     """Vectorized dedup_reads for an [N, L] uint8 read matrix: a unique
     (insert, UMI) key is exactly a unique read, so grouping is one native
     hash-count with inverse over the read matrix, and gid assignment a
@@ -731,7 +765,7 @@ def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
     candidates = np.flatnonzero(group_sizes[gids] >= 2)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=block,
-                            device=device)
+                            mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     molecules = [(uniq_mat[i, ins_lo:ins_hi].tobytes(),
                   umi_mat[i].tobytes()) for i in rep_nodes]
@@ -739,7 +773,7 @@ def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
 
 
 def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
-                        threshold, block, device):
+                        threshold, block, device, mesh=None):
     """Length-bucketed vectorized dedup_reads for ragged read lists.
     Reads of different lengths never share an insert, so grouping
     decomposes exactly by read length; per-bucket uniques are re-ranked
@@ -802,7 +836,7 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
     candidates = np.flatnonzero(group_sizes[gids] >= 2)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=block,
-                            device=device)
+                            mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     molecules = []
     for i in rep_nodes:
@@ -815,7 +849,7 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
 
 def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
                 threshold: int = 1, method: str = "directional",
-                _block=None, device="cuda"):
+                _block=None, mesh=None, device=None):
     """Full UMI read deduplication on `device`: reads carrying UMIs on the
     5'/3' ends are grouped by insert sequence, and within each group the
     UMIs are clustered; each cluster is one original molecule.
@@ -828,7 +862,11 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
       reads: list of str/bytes (UMI(s) still attached), or an [N, L]
         uint8 matrix of uniform-length reads.
       len_5p/len_3p: UMI lengths clipped from each end.
-      device: "cuda" (the kernels; raises without a card) or "cpu".
+      mesh: a dist.data_mesh whose ranks all call with the same reads:
+        the neighbour search splits into row bands over them, on
+        mesh.device, and every rank returns the same result.
+      device: "cuda" (the default: the kernels; raises without a card) or
+        "cpu"; with a mesh, mesh.device (another device raises).
     Returns:
       (labels, molecules): `labels[i]` is the molecule id of read i;
       `molecules[m]` is `(insert_bytes, umi_bytes)` for molecule m (the
@@ -844,7 +882,7 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
         raise ValueError("at least one UMI length must be positive")
     if len_5p + len_3p > MAX_64_NT:
         raise ValueError("UMIs longer than 32 nt are not supported")
-    device = _resolve_device(device)
+    device = _dedup_device(device, mesh)
     if len(reads) == 0:
         return np.zeros(0, np.int64), []
 
@@ -857,7 +895,8 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
                 f"Read of {reads.shape[1]} nt is shorter than the UMI "
                 f"lengths ({len_5p} + {len_3p})")
         res = _dedup_reads_matrix(np.ascontiguousarray(reads), len_5p,
-                                  len_3p, method, threshold, _block, device)
+                                  len_3p, method, threshold, _block, device,
+                                  mesh)
         if res is not None:
             return res
         matrix_unavailable = True
@@ -875,10 +914,11 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
             res = _dedup_reads_matrix(
                 np.frombuffer(b"".join(norm), np.uint8).reshape(
                     len(norm), lng),
-                len_5p, len_3p, method, threshold, _block, device)
+                len_5p, len_3p, method, threshold, _block, device, mesh)
         else:
             res = _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p,
-                                      method, threshold, _block, device)
+                                      method, threshold, _block, device,
+                                      mesh)
         if res is not None:
             return res
 
@@ -907,7 +947,7 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
     candidates = np.flatnonzero(group_sizes[gids] >= 2)
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=_block,
-                            device=device)
+                            mesh=mesh, device=device)
     labels_u, rep_nodes = _relabel(roots, counts)
     molecules = [(inserts[uniq[i][0]], uniq[i][1]) for i in rep_nodes]
     return labels_u[inverse], molecules

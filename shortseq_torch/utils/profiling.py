@@ -1,11 +1,21 @@
 """Phase timing for the reference-style timing print (reference
-counter.pyx:62-70), from shortseq_tpu/utils/profiling.py."""
+counter.pyx:62-70), named profiler ranges around the kernels' wrappers,
+and a trace context, from shortseq_tpu/utils/profiling.py.
+
+The JAX package names its kernels with jax.named_scope so that XLA traces
+show them; here a named range is a torch.profiler.record_function, which
+torch.profiler traces (and TensorBoard or chrome://tracing shows) with
+each kernel's launch inside it.  The kernels' wrappers take theirs through
+the `scoped` decorator."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 
 @dataclass
@@ -35,3 +45,73 @@ def phase_timer(name: str, timings: PhaseTimings | None = None,
             timings.add(name, dt)
         if echo:
             print(f"{name}: {dt:.2f}s")
+
+
+# Whether a torch profiler records: the autograd profiler's Python flag
+# (one attribute read), or, where the installed torch lacks it, the C++
+# query.
+_autograd_profiler = torch.autograd.profiler
+if hasattr(_autograd_profiler, "_is_profiler_enabled"):
+    def _profiler_active() -> bool:
+        return _autograd_profiler._is_profiler_enabled
+else:
+    _profiler_active = torch._C._autograd._profiler_enabled
+
+
+class _NoRange:
+    """The context of named_scope when nothing traces."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_RANGE = _NoRange()
+
+
+def named_scope(name: str):
+    """A torch.profiler range named `name` around a `with` block, opened
+    only while a profiler records: record_function is a dispatcher call
+    of several microseconds even when nothing traces.  Exceptions from
+    the block propagate."""
+    if _profiler_active():
+        return torch.profiler.record_function(name)
+    return _NO_RANGE
+
+
+def scoped(name: str):
+    """Decorator: the function runs inside named_scope(name), with the
+    profiler check made before the call, so that a kernel's wrapper (15-70
+    us a call on the card's hosts) pays one flag read and one Python call
+    when nothing traces.  The undecorated function is `__wrapped__`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not _profiler_active():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return run
+
+    return wrap
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """torch.profiler trace of the block (CPU activity, plus CUDA when a
+    card is present), written into `log_dir` as a Chrome/TensorBoard trace
+    file when the block ends; yields the profiler."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))) as prof:
+        yield prof
