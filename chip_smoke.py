@@ -40,7 +40,10 @@ Phases, one line each; any failure raises and exits nonzero:
              GROUP_TILE_ROWS, poison, int32 wraps, small n_out, PAD
              rows, N = 1, W = 1 and 5), a one-key shape, each of its
              launches' device times (torch.profiler), the sort and the
-             whole unique_count; kernel A's pack-only mode at [2M, 40]
+             whole unique_count (sort + D), beside torch.unique of the
+             (length, row) keys with return_counts at [10M, 2] and
+             [2M, 64] (the library call for unit weights; its groups
+             checked against D's); kernel A's pack-only mode at [2M, 40]
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
              words), E at [2M, 10], F (kernel_f) static (8, 100) (one
              launch a call) and ragged at [2M, 10] with its wrapper's host
@@ -88,6 +91,12 @@ Phases, one line each; any failure raises and exits nonzero:
              200,000 strings equal to from_matrix, and its invalid-base
              error; to_objects() on 100,000 rows equal to pack(str);
              umi_adjacency on 8,192 12-nt UMIs against the plain pairwise
+  folded     the JAX package's row-folded and padded names through kernel
+             A: pack_and_validate_folded, pack_folded and
+             pack_validate_padded at bench.py's headline shape (2^18 rows
+             x 160 bytes, fold 4, unfold=False, pad_valid) and at
+             [10M, 8] lanes (fold 16, unfold True and False), each equal
+             to the plain pack exactly, then timed
   sharded    count's files 1 and 2 through the sharded and distributed
              path: `python -m shortseq_torch count FILE1 --shards 8
              --checkpoint DIR --top 20` as a subprocess, equal to phase
@@ -123,11 +132,12 @@ Phases, one line each; any failure raises and exits nonzero:
              as a fresh process's first call, 3 times with the CUDA warmup
              thread and 3 without, in turns
   counters   kernels A to H and K10 all launched while phases umi_scale,
-             umi_cli, count, batch, sharded and umi_mesh drove the main
-             path (counts reset just before each run), H in umi_scale,
+             umi_cli, count, batch, folded, sharded and umi_mesh drove the
+             main path (counts reset just before each run), H in umi_scale,
              umi_cli and umi_mesh, B + C in the overflow tier of umi_scale
              and umi_mesh, D during count, A in
              count_matrix_device, A's pack-only mode, E, F and G in batch,
+             A 5 times and its pack-only mode 3 times in folded,
              K10 in sharded, and the pairwise choice in batch; all three
              merge tiers taken; the native host library loaded, the UMI
              matrix paths, the count path's device engine, 4-chunk
@@ -163,6 +173,8 @@ SOURCE_DIST = "shortseq_torch/csrc/dist.cu"
 # 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 POPC_PER_S = 132 * 16 * 1.98e9
+# The H100 SXM's dense float16 tensor-core peak (the one-hot product's).
+FP16_FLOPS_PER_S = 989e12
 
 
 def phase(name, fn, *args):
@@ -481,9 +493,15 @@ def kernel_checks(torch, results, lines):
                    lambda: hamming.hamming_pairwise_onehot(a, b)], runs)
         n, w = a.shape
         bnd = bound([a, b], [got], popc=n * len(b) * -(-w // 2))
+        # The one-hot product's own bound: its [n, 64 w] x [64 w, m]
+        # float16 multiply-adds at the tensor cores' dense peak, against
+        # the same operands' and result's bytes.
+        hot = max(bound([a, b], [got])[0],
+                  2 * n * len(b) * 64 * w / FP16_FLOPS_PER_S * 1e3)
         split = launch_split(torch, kernel, ("pairwise",))
         lines.append(f"B {name}: {t[0]:.4f} ms, plain {t[1]:.4f} ms, "
-                     f"one-hot {t[2]:.4f} ms; {bound_text(bnd)}; {split}")
+                     f"one-hot {t[2]:.4f} ms (its bound {hot:.4f} ms); "
+                     f"{bound_text(bnd)}; {split}")
         return err, t, bnd
 
     errs = [b_case("[2688]x[102144] W=2", a, words, out=slab)[0]]
@@ -1209,7 +1227,10 @@ def kernel_d(torch, timer, rng, lines):
     (exact, not timed), then the timed shapes: random 32-nt-class rows
     (nearly all unique), 150-nt rows drawn Zipf(1.2) from 200,000 keys
     (one group of ~390,000 rows), 96-nt-class rows from a pool, and
-    32-nt-class rows that are all one key (the worst skew)."""
+    32-nt-class rows that are all one key (the worst skew).  The first
+    two shapes also time torch.unique of the (length, row) keys, the one
+    PyTorch call for unique_count's grouping at unit weights (the JSON
+    line's library_ms: the random rows')."""
     import numpy as np
 
     from shortseq_torch.count import device as cdev
@@ -1255,25 +1276,46 @@ def kernel_d(torch, timer, rng, lines):
             cdev.group_count(words, lengths, weights, perm, n), want))
         biggest, groups = int(want[2].max()), int(want[3])
         bnd = bound([words, lengths, weights, perm], want)
-        del want
-        ms, plain_ms, sort_ms, total_ms = timer([
+        fns = [
             lambda: cdev.group_count(words, lengths, weights, perm, n),
             lambda: cdev.group_count_plain(words, lengths, weights, perm, n),
             lambda: cdev.sort_rows(words, lengths),
-            lambda: cdev.unique_count(words, lengths, weights)])
+            lambda: cdev.unique_count(words, lengths, weights)]
+        library = ""
+        if keys is None or zipf:
+            # K4's library yardstick: torch.unique groups the (length,
+            # row) keys and counts them, unique_count's whole function at
+            # unit weights.
+            def unique():
+                return torch.unique(torch.cat([lengths[:, None], words], 1),
+                                    dim=0, return_counts=True)
+
+            keys_u, counts_u = unique()
+            if len(counts_u) != groups or \
+                    not torch.equal(counts_u.sort().values,
+                                    want[2][:groups].long().sort().values):
+                raise AssertionError(f"torch.unique [{n},{w}] groups differ "
+                                     "from unique_count's")
+            del keys_u, counts_u
+            fns.append(unique)
+        del want
+        ms, plain_ms, sort_ms, total_ms, *lib = timer(fns)
+        if lib:
+            library = f"; torch.unique (the library call) {lib[0]:.4f} ms"
         split = launch_split(
             torch, lambda: cdev.group_count(words, lengths, weights, perm, n),
             ("group_tile", "group_finish", "fill"))
         lines.append(f"D [{n},{w}] ({groups} groups, largest {biggest}): "
                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {split}; "
-                     f"sort {sort_ms:.4f} ms; unique_count {total_ms:.4f} "
-                     f"ms; {bound_text(bnd)}")
+                     f"sort {sort_ms:.4f} ms; unique_count (sort + D) "
+                     f"{total_ms:.4f} ms{library}; {bound_text(bnd)}")
         if d_main is None:
-            d_main = (ms, plain_ms, bnd)
+            d_main = (ms, plain_ms, bnd, lib[0])
         del words, lengths, weights, perm
     return dict(source=SOURCE_D, replaces="shortseq_tpu/count/device.py:156",
                 max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1],
-                bound_ms=d_main[2][0], bound_by=d_main[2][1], library_ms=None)
+                bound_ms=d_main[2][0], bound_by=d_main[2][1],
+                library_ms=d_main[3])
 
 
 def batch_kernels(torch, timer, rng, lines, extras=True):
@@ -2351,6 +2393,129 @@ def phase_batch(torch, main_path, workdir, found):
     return "all checks passed"
 
 
+def phase_folded(torch, main_path):
+    """The JAX package's row-folded and padded names on the card, driven
+    once on the main path (kernel A's launches counted): bench.py's
+    headline, 2^18 rows x 160 bytes of ACGT with PAD_BYTE tails (fold_for
+    gives 4; pack_and_validate_folded with unfold=False and pad_valid,
+    pack_folded, pack_validate_padded), and kernel A's JSON line's shape,
+    [10M, 8] lanes with zero tails and 1% random bytes (fold_for gives 16;
+    both names with unfold True and False, pack_validate_padded, which
+    pads to 10,485,760 rows).  Each result equals pack_and_validate_plain
+    or pack_words_plain on the same rows exactly; then each is timed
+    (CUDA events; pack_validate_padded, which starts from host rows, by
+    the host clock)."""
+    import numpy as np
+
+    from shortseq_torch.constants import PAD_BYTE
+    from shortseq_torch.count import ingest
+    from shortseq_torch.ops import bitpack
+
+    rng = np.random.default_rng(8)
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    n1, w1 = 1 << 18, 40
+    rows1 = alpha[rng.integers(0, 4, size=(n1, 4 * w1), dtype=np.uint8)]
+    lens1 = rng.integers(100, 4 * w1 + 1, size=n1).astype(np.int32)
+    rows1[np.arange(4 * w1)[None, :] >= lens1[:, None]] = PAD_BYTE
+    bad = rng.random(rows1.shape) < 1e-4
+    rows1[bad] = rng.integers(0, 256, size=int(bad.sum()))
+    x1 = torch.from_numpy(rows1.view(np.int32)).cuda()
+    l1 = torch.from_numpy(lens1).cuda()
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    n2, w2 = 10_000_000, 8
+    codes = torch.randint(0, 4, (n2, 4 * w2), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    mat2 = torch.tensor(list(b"ACGT"), dtype=torch.uint8,
+                        device="cuda")[codes.long()]
+    del codes
+    l2 = torch.randint(0, 4 * w2 + 1, (n2,), dtype=torch.int32,
+                       device="cuda", generator=gen)
+    mat2[torch.arange(4 * w2, device="cuda")[None, :] >= l2[:, None]] = 0
+    hit = torch.rand(mat2.shape, device="cuda", generator=gen) < 0.01
+    mat2[hit] = torch.randint(0, 256, (int(hit.sum()),), dtype=torch.uint8,
+                              device="cuda", generator=gen)
+    del hit
+    x2 = mat2.view(torch.int32)
+    rows2, lens2 = mat2.cpu().numpy(), l2.cpu().numpy()
+    del mat2
+
+    f1, f2 = bitpack.fold_for(w1, n1), bitpack.fold_for(w2, n2)
+    if (f1, f2) != (4, 16):
+        raise AssertionError(f"fold_for gave {f1} and {f2}, not 4 and 16")
+    x1f, l1f = x1.view(n1 // f1, f1 * w1), l1.view(n1 // f1, f1)
+    x2f, l2f = x2.view(n2 // f2, f2 * w2), l2.view(n2 // f2, f2)
+    calls = {
+        "headline pack_and_validate_folded unfold=False pad_valid":
+            lambda: bitpack.pack_and_validate_folded(
+                x1f, l1f, w1, unfold=False, pad_valid=True),
+        "headline pack_folded unfold=False":
+            lambda: [bitpack.pack_folded(x1f, w1, unfold=False)],
+        "[10M,8] pack_and_validate_folded unfold=True":
+            lambda: bitpack.pack_and_validate_folded(x2f, l2f, w2),
+        "[10M,8] pack_and_validate_folded unfold=False":
+            lambda: bitpack.pack_and_validate_folded(x2f, l2f, w2,
+                                                     unfold=False),
+        "[10M,8] pack_folded unfold=True":
+            lambda: [bitpack.pack_folded(x2f, w2)],
+        "[10M,8] pack_folded unfold=False":
+            lambda: [bitpack.pack_folded(x2f, w2, unfold=False)]}
+    padded = {
+        "headline pack_validate_padded pad_valid":
+            lambda: ingest.pack_validate_padded(rows1, lens1, pad_valid=True),
+        "[10M,8] pack_validate_padded":
+            lambda: ingest.pack_validate_padded(rows2, lens2)}
+    got, got_padded = main_path.run(
+        "folded", lambda: ({k: f() for k, f in calls.items()},
+                           {k: f() for k, f in padded.items()}))
+
+    w1p, ok1p = bitpack.pack_and_validate_plain(x1, l1, True)
+    w2p, ok2p = bitpack.pack_and_validate_plain(x2, l2, False)
+    pack1p, pack2p = bitpack.pack_words_plain(x1), bitpack.pack_words_plain(x2)
+    nf1, nf2 = n1 // f1, n2 // f2
+    want = [[w1p.view(nf1, -1), ok1p.view(nf1, -1)], [pack1p.view(nf1, -1)],
+            [w2p, ok2p], [w2p.view(nf2, -1), ok2p.view(nf2, -1)], [pack2p],
+            [pack2p.view(nf2, -1)]]
+    for (name, g), w in zip(got.items(), want):
+        exact(f"A {name}", g, w)
+    del got, want, w1p, ok1p, w2p, ok2p, pack1p, pack2p
+    for (name, (words, ok)), (x, ln, pad_valid) in zip(
+            got_padded.items(), ((x1, l1, True), (x2, l2, False))):
+        n = len(x)
+        n_pad = ingest.quarter_pow2(n)
+        pad = PAD_BYTE * 0x01010101
+        xp = torch.cat([x, torch.full((n_pad - n, x.shape[1]), pad,
+                                      dtype=torch.int32, device="cuda")])
+        lp = torch.cat([ln, torch.zeros(n_pad - n, dtype=torch.int32,
+                                        device="cuda")])
+        pw, pok = bitpack.pack_and_validate_plain(xp, lp, pad_valid)
+        exact(f"A {name}", [words, torch.from_numpy(ok)], [pw, pok[:n].cpu()])
+        del xp, lp, pw, pok
+    del got_padded
+
+    timer = Timer(torch)
+    for name, fn in calls.items():
+        x, ln = (x1, l1) if name.startswith("headline") else (x2, l2)
+        out = fn()
+        bnd = bound([x, ln] if len(out) == 2 else [x], out)
+        del out
+        ms, = timer([fn])
+        print(f"  A {name}: {ms:.4f} ms; {bound_text(bnd)}", flush=True)
+    for name, fn in padded.items():
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"  A {name} (host rows in, padding and the copy included): "
+              f"{statistics.median(walls) * 1e3:.1f} ms (median of 3)",
+              flush=True)
+    return (f"fold_for 4 and 16; {len(calls) + len(padded)} calls exact; "
+            f"launches {main_path.last}")
+
+
 def phase_sharded(torch, main_path, workdir, found, results):
     """The sharded and distributed count on phase count's files 1 and 2:
     the resumable CLI, a resume after lost spills, the three merge tiers
@@ -2473,7 +2638,8 @@ def phase_sharded(torch, main_path, workdir, found, results):
         for name, path, n, want, tier in (
                 ("file 2", path2, n2, rows2, 2),
                 ("file 1", path1, n1, rows1, 3)):
-            (w, ln), = packed_buckets(*read_fastq_index(path))
+            (w, ln), = packed_buckets(*read_fastq_index(path),
+                                      pad_pow2=False)
             w, ln = from_numpy_u32(w).cuda(), torch.from_numpy(ln).cuda()
             bufs[name] = (w, ln)
             ones = torch.ones(n, dtype=torch.int32, device="cuda")
@@ -2967,6 +3133,7 @@ def main() -> int:
         phase("umi_cli", phase_umi_cli, torch, main_path, workdir)
         phase("count", phase_count, torch, main_path, workdir, found)
         phase("batch", phase_batch, torch, main_path, workdir, found)
+        phase("folded", phase_folded, torch, main_path)
         phase("sharded", phase_sharded, torch, main_path, workdir, found,
               results)
         del found["tables"]
@@ -3003,6 +3170,9 @@ def main() -> int:
         if "tiled" in found["batch_pairwise"] and \
                 in_batch["pairwise_hamming"] == 0:
             raise AssertionError("pairwise chose tiled but B never launched")
+        in_folded = main_path.by_phase["folded"]
+        if (in_folded["pack_validate"], in_folded["pack_words"]) != (5, 3):
+            raise AssertionError(f"kernel A in phase folded: {in_folded}")
         in_sharded = main_path.by_phase["sharded"]
         if in_sharded["bucket_send"] == 0:
             raise AssertionError("K10 never launched in phase sharded")
@@ -3022,6 +3192,7 @@ def main() -> int:
                 f"in phase count "
                 f"{main_path.by_phase['count']}, in phase batch {in_batch} "
                 f"(pairwise path {found['batch_pairwise']}), in phase "
+                f"folded {in_folded}, in phase "
                 f"sharded {in_sharded} (merge tiers {found['tiers']}), in "
                 f"phase umi_mesh {umi['umi_mesh']}, A in "
                 f"count_matrix_device {found['matrix_pack_validate']}; "

@@ -215,6 +215,10 @@ def load_objects():
         return _objects
 
 
+#: The JAX package's name for load_objects (shortseq_tpu/native_build.py).
+load = load_objects
+
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int

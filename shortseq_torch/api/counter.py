@@ -236,7 +236,22 @@ def _put_lengths(sub_len, device: torch.device) -> torch.Tensor:
     return torch.where(lens < 0, PAD_LENGTH, lens)
 
 
-def count_indexed_device_table(data, starts, lengths, device="cuda"):
+def _whole_buckets(buckets):
+    """packed_buckets' yields joined into one per width bucket (a bucket's
+    yields come one after another)."""
+    parts = []
+    for part in buckets:
+        if parts and part[0].shape[1] != parts[0][0].shape[1]:
+            yield tuple(map(np.concatenate, zip(*parts)))
+            parts = []
+        parts.append(part)
+    if parts:
+        yield tuple(map(np.concatenate, zip(*parts)))
+
+
+def count_indexed_device_table(data, starts, lengths,
+                               batch_size: int | None = None,
+                               device="cuda"):
     """Count indexed FASTQ rows (io.fastq.read_fastq_index output) on
     `device`: host gather+pack per width bucket, device sort-unique-count.
     Returns a lazy count.table.CountTable whose buckets stay on the
@@ -244,9 +259,12 @@ def count_indexed_device_table(data, starts, lengths, device="cuda"):
     table.  Bucket tables are disjoint by length, so the logical table is
     their union.
 
-    A bucket of at least H2D_CHUNK_MIN_ROWS rows goes over in 4 chunks,
-    each counted as it lands, and the 4 chunk tables merge in one
-    unique_count with their counts as weights."""
+    `batch_size` caps the unpadded rows of each host gather, as in the
+    JAX package; a bucket's gathers join on the host before it goes over,
+    so the table is the same at any batch_size.  A bucket of at least
+    H2D_CHUNK_MIN_ROWS rows goes over in 4 chunks, each counted as it
+    lands, and the 4 chunk tables merge in one unique_count with their
+    counts as weights."""
     from ..count.device import unique_count
     from ..count.ingest import packed_buckets
     from ..count.table import CountTable
@@ -258,8 +276,12 @@ def count_indexed_device_table(data, starts, lengths, device="cuda"):
     # Overlap the card's one-time set-up with the host gather + pack of
     # the first bucket (utils/warmup.py).
     start_transfer_warmup(device)
+    buckets = packed_buckets(data, starts, lengths, batch_size=batch_size,
+                             pad_pow2=False)
+    if batch_size is not None:
+        buckets = _whole_buckets(buckets)
     tables = []
-    for words, sub_len in packed_buckets(data, starts, lengths):
+    for words, sub_len in buckets:
         rows = len(sub_len)
         n_chunks = _h2d_chunks(rows)
         bounds = [rows * i // n_chunks for i in range(n_chunks + 1)]
@@ -278,13 +300,12 @@ def count_indexed_device_table(data, starts, lengths, device="cuda"):
 
 
 def count_indexed_device(data, starts, lengths,
+                         batch_size: int | None = None,
                          device="cuda") -> ShortSeqCounter:
     """Eager form of count_indexed_device_table: materializes the full
-    reference-identical dict.  The JAX package's `batch_size` argument is
-    left out: there it only set how finely the host gathered before the
-    one transfer per bucket (the sharded pipeline's device batches take
-    PipelineConfig.batch_size instead)."""
+    reference-identical dict."""
     return count_indexed_device_table(data, starts, lengths,
+                                      batch_size=batch_size,
                                       device=device).to_counter()
 
 
@@ -303,7 +324,8 @@ def count_indexed_host_table(data, starts, lengths):
         return CountTable([])
     return CountTable.from_host_tables(
         host_count_native(words, sub_len)
-        for words, sub_len in packed_buckets(data, starts, lengths))
+        for words, sub_len in packed_buckets(data, starts, lengths,
+                                             pad_pow2=False))
 
 
 def count_indexed_host(data, starts, lengths) -> ShortSeqCounter | None:
@@ -428,7 +450,8 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
         if len(lengths) == 0:
             continue
         if use_host:
-            for words, sub_len in packed_buckets(data, starts, lengths):
+            for words, sub_len in packed_buckets(data, starts, lengths,
+                                                 pad_pow2=False):
                 by_width.setdefault(words.shape[1], []).append(
                     host_count_native(words, sub_len))
         else:

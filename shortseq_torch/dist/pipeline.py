@@ -36,7 +36,8 @@ def _batched_count_tables(data, starts, lengths, config: PipelineConfig,
     from ..count.ingest import packed_buckets
 
     for words, sub_len in packed_buckets(data, starts, lengths,
-                                         batch_size=config.batch_size):
+                                         batch_size=config.batch_size,
+                                         pad_pow2=False):
         yield unique_count(_put_words(words, device),
                            _put_lengths(sub_len, device),
                            torch.ones(len(sub_len), dtype=torch.int32,

@@ -15,9 +15,12 @@ lanes; their u8 twins take `[N, L]` uint8 tensors with L % 4 == 0.
 The JAX version's row folding and bf16 "poison" dot existed for the TPU's
 128-lane tiles and its matrix unit; neither means anything on Hopper, so
 kernel A is one read and one write (shortseq_torch/csrc/kernels.cu, note
-A: bound by HBM bytes), and `fold_for`, `pack_folded`, `_pack_folded_raw`,
-`pack_and_validate_folded`, `_compact_mats` and `_folded_mats` have no
-counterpart here.
+A: bound by HBM bytes).  The folded names keep the JAX signatures: a
+folded batch `[N/F, F*W4]` is a free row-major view of `[N, W4]`, so
+`pack_and_validate_folded` and `pack_folded` are reshapes around kernel
+A, and `fold_for` is the JAX arithmetic.  The JAX package's private
+matrix helpers (`_compact_mats`, `_folded_mats`, `_pack_folded_raw`)
+only build the TPU's dot operands and have no counterpart.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..constants import CHARMAP_BYTES
 from ..utils.profiling import scoped
 from .lanes import from_numpy_u32, srl
 
@@ -35,9 +39,6 @@ _TAIL = (0, 0x40, 0x4040, 0x404040, 0x40404040)
 # Low 32 bits of ~BLOOM: the pass set {1, 3, 7, 20} of (byte & 63); bit 5
 # of a byte set always fails (constants.BLOOM).
 _BLOOM_PASS_LO = 0x0010008A
-
-# code -> ASCII through the reference charmap A, C, T, G.
-_CHARMAP_BYTES = (65, 67, 84, 71)
 
 
 def _u8_to_u32(ascii_u8: torch.Tensor) -> torch.Tensor:
@@ -104,20 +105,21 @@ def _check_lanes_operand(x: torch.Tensor) -> None:
 
 
 @scoped("ssq.pack")
-def pack_words_u32(x: torch.Tensor) -> torch.Tensor:
+def pack_words_u32(x_u32: torch.Tensor) -> torch.Tensor:
     """Pack `[N, W4]` lanes (W4 % 4 == 0) to `[N, W4 / 4]` words with no
     validation (kernel A in its pack-only mode): every byte packs as
     (c >> 1) & 3, so zero padding packs to code 0, the reference's
     zero-filled tail.  A CUDA tensor launches the kernel; a CPU tensor
     takes the plain version."""
-    _check_pack_input(x)
-    if x.device.type == "cpu":
-        return pack_words_plain(x)
-    _check_lanes_operand(x)
-    n, w4 = x.shape
-    words = torch.empty((n, w4 // 4), dtype=torch.int32, device=x.device)
-    _build.launch("ssq_pack_validate", x.data_ptr(), None, words.data_ptr(),
-                  None, n, w4 // 4, 0)
+    _check_pack_input(x_u32)
+    if x_u32.device.type == "cpu":
+        return pack_words_plain(x_u32)
+    _check_lanes_operand(x_u32)
+    n, w4 = x_u32.shape
+    words = torch.empty((n, w4 // 4), dtype=torch.int32,
+                        device=x_u32.device)
+    _build.launch("ssq_pack_validate", x_u32.data_ptr(), None,
+                  words.data_ptr(), None, n, w4 // 4, 0)
     pack_words_u32.launches += 1
     return words
 
@@ -139,21 +141,22 @@ def pack_rows(mat_u32: np.ndarray, device) -> torch.Tensor:
 
 
 @scoped("ssq.pack_validate")
-def pack_and_validate_u32(x: torch.Tensor, lengths: torch.Tensor,
+def pack_and_validate_u32(x_u32: torch.Tensor, lengths: torch.Tensor,
                           pad_valid: bool = False):
     """Fused pack + validity mask (kernel A).  A CUDA tensor launches the
     kernel; a CPU tensor takes the plain version."""
-    _check_pack_input(x)
-    if x.device.type == "cpu":
-        return pack_and_validate_plain(x, lengths, pad_valid)
-    _check_lanes_operand(x)
-    _build.check_operand(lengths, "lengths", torch.int32, 1, x.device)
-    n, w4 = x.shape
+    _check_pack_input(x_u32)
+    if x_u32.device.type == "cpu":
+        return pack_and_validate_plain(x_u32, lengths, pad_valid)
+    _check_lanes_operand(x_u32)
+    _build.check_operand(lengths, "lengths", torch.int32, 1, x_u32.device)
+    n, w4 = x_u32.shape
     if lengths.shape[0] != n:
         raise ValueError(f"lengths has {lengths.shape[0]} rows, x has {n}")
-    words = torch.empty((n, w4 // 4), dtype=torch.int32, device=x.device)
-    ok = torch.empty(n, dtype=torch.bool, device=x.device)
-    _build.launch("ssq_pack_validate", x.data_ptr(), lengths.data_ptr(),
+    words = torch.empty((n, w4 // 4), dtype=torch.int32,
+                        device=x_u32.device)
+    ok = torch.empty(n, dtype=torch.bool, device=x_u32.device)
+    _build.launch("ssq_pack_validate", x_u32.data_ptr(), lengths.data_ptr(),
                   words.data_ptr(), ok.data_ptr(), n, w4 // 4,
                   int(pad_valid))
     pack_and_validate_u32.launches += 1
@@ -175,16 +178,63 @@ def pack_and_validate_rows(mat_u32: np.ndarray, lengths: np.ndarray,
     return pack_and_validate_u32(x, lens, pad_valid=pad_valid)
 
 
+def fold_for(w4: int, n: int, target_lanes: int = 128) -> int:
+    """Row-fold factor for a `[n, w4]` batch, the JAX package's
+    arithmetic: enough folded lanes to reach `target_lanes`, a power of
+    two of at most 64 that divides n.  It sized the TPU's tiles; here it
+    only names a layout, since every fold is the same bytes."""
+    if w4 >= target_lanes or n <= 0:
+        return 1
+    fold = 1
+    while fold * w4 < target_lanes and fold < 64:
+        fold *= 2
+    while fold > 1 and n % fold:
+        fold //= 2
+    return fold
+
+
+def _unfold_rows(x_f: torch.Tensor, w4: int) -> torch.Tensor:
+    """`[N/F, F*w4]` folded lanes -> the `[N, w4]` rows they hold."""
+    if x_f.dim() != 2 or w4 <= 0 or x_f.shape[1] % w4:
+        raise ValueError(f"folded lanes must be [N/F, F*{w4}], got "
+                         f"{tuple(x_f.shape)}")
+    return x_f.reshape(-1, w4)
+
+
+def pack_and_validate_folded(x_f: torch.Tensor, lengths_f: torch.Tensor,
+                             w4: int, unfold: bool = True,
+                             pad_valid: bool = False):
+    """Kernel A on a row-folded batch: `[N/F, F*w4]` lanes (F consecutive
+    rows of `[N, w4]` in each) and `[N/F, F]` int32 lengths.  Returns
+    `[N, w4/4]` words and `[N]` ok, or with unfold=False the folded
+    layouts, `[N/F, F*w4/4]` words and `[N/F, F]` ok.  Both layouts are
+    views of one launch's outputs."""
+    nf = x_f.shape[0]
+    words, ok = pack_and_validate_u32(_unfold_rows(x_f, w4),
+                                      lengths_f.reshape(-1),
+                                      pad_valid=pad_valid)
+    if unfold:
+        return words, ok
+    return words.reshape(nf, -1), ok.reshape(nf, -1)
+
+
+def pack_folded(x_f: torch.Tensor, w4: int, unfold: bool = True):
+    """Kernel A's pack-only mode on a row-folded batch: `[N, w4/4]` words,
+    or `[N/F, F*w4/4]` with unfold=False."""
+    words = pack_words_u32(_unfold_rows(x_f, w4))
+    return words if unfold else words.reshape(x_f.shape[0], -1)
+
+
 def pack_and_validate(ascii_u8: torch.Tensor, lengths: torch.Tensor):
     """Fused pack + validity mask from a `[N, L]` uint8 matrix (kernel A,
     length-masked)."""
     return pack_and_validate_u32(_u8_to_u32(ascii_u8), lengths)
 
 
-def validate_u32(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def validate_u32(x_u32: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Per-row validity: True iff every byte before the row's length passes
     the reference bloom filter (kernel A's ok, length-masked)."""
-    return pack_and_validate_u32(x, lengths)[1]
+    return pack_and_validate_u32(x_u32, lengths)[1]
 
 
 def validate(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -192,19 +242,21 @@ def validate(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return validate_u32(_u8_to_u32(ascii_u8), lengths)
 
 
-def first_bad_byte_u32(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def first_bad_byte_u32(x_u32: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
     """Per-row index (int32) of the first bloom-failing byte before the
     row's length, or 4 * W4 if there is none.  Torch ops on any device: no
     path of the package reaches it (it exists for the reference's
     per-character error message)."""
-    n, w4 = x.shape
+    n, w4 = x_u32.shape
     big = 4 * w4
-    lane = torch.arange(w4, dtype=torch.int32, device=x.device)
-    lengths = lengths.to(device=x.device, dtype=torch.int32)[:, None]
-    pass_lo = torch.tensor(_BLOOM_PASS_LO, dtype=torch.int32, device=x.device)
-    first = torch.full((n,), big, dtype=torch.int32, device=x.device)
+    lane = torch.arange(w4, dtype=torch.int32, device=x_u32.device)
+    lengths = lengths.to(device=x_u32.device, dtype=torch.int32)[:, None]
+    pass_lo = torch.tensor(_BLOOM_PASS_LO, dtype=torch.int32,
+                           device=x_u32.device)
+    first = torch.full((n,), big, dtype=torch.int32, device=x_u32.device)
     for k in range(4):
-        c = (x >> (8 * k)) & 0xFF
+        c = (x_u32 >> (8 * k)) & 0xFF
         ok = (((pass_lo >> (c & 31)) & 1) == 1) & ((c & 32) == 0)
         pos = 4 * lane + k
         bad = ~ok & (pos[None, :] < lengths)
@@ -218,12 +270,18 @@ def first_bad_byte(ascii_u8: torch.Tensor, lengths: torch.Tensor) -> torch.Tenso
     return first_bad_byte_u32(_u8_to_u32(ascii_u8), lengths)
 
 
+def collapse_xor(c: torch.Tensor) -> torch.Tensor:
+    """((c >> 1) | c) & 0x55555555 on int32 lanes (logical shift): one bit
+    a differing 2-bit field of c = a ^ b."""
+    return (srl(c, 1) | c) & 0x55555555
+
+
 def unpack_ascii_plain(words: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel E (any device)."""
     n, w = words.shape
     shifts = torch.arange(0, 32, 2, dtype=torch.int32, device=words.device)
     codes = (words[:, :, None] >> shifts) & 3
-    table = torch.tensor(_CHARMAP_BYTES, dtype=torch.uint8,
+    table = torch.tensor(CHARMAP_BYTES, dtype=torch.uint8,
                          device=words.device)
     return table[codes.long()].reshape(n, 16 * w)
 

@@ -8,9 +8,10 @@ to 0b11 and count once), popcount, sum over the lanes.
   `hamming_rows_plain` beside it.
 * `hamming_pairwise`: all pairs by broadcasting, the plain version of
   kernel B (ops/pairwise.py).
-* `hamming_pairwise_onehot`: all pairs as one matrix product of one-hot
-  codes, the counterpart of `hamming_pairwise_mxu`.  The JAX package
-  computes it outside any Pallas kernel, so here it is `torch.matmul`.
+* `hamming_pairwise_onehot` (also named `hamming_pairwise_mxu`, as in the
+  JAX package): all pairs as one matrix product of one-hot codes.  The
+  JAX package computes it outside any Pallas kernel, so here it is
+  `torch.matmul`.
 """
 
 from __future__ import annotations
@@ -19,12 +20,8 @@ import torch
 
 from .. import _build
 from ..utils.profiling import scoped
-from .lanes import popcount32, srl
-
-
-def collapse_xor(c: torch.Tensor) -> torch.Tensor:
-    """((c >> 1) | c) & 0x55555555 on int32 lanes (logical shift)."""
-    return (srl(c, 1) | c) & 0x55555555
+from .bitpack import collapse_xor
+from .lanes import popcount32
 
 
 def hamming_rows_plain(a_words: torch.Tensor,
@@ -104,3 +101,7 @@ def hamming_pairwise_onehot(a_words: torch.Tensor,
     dtype = _onehot_dtype(a_words)
     matches = one_hot_codes(a_words, dtype) @ one_hot_codes(b_words, dtype).T
     return matches.to(torch.int32).neg_().add_(16 * w)
+
+
+#: The JAX package's name for the one-hot product (its MXU matmul).
+hamming_pairwise_mxu = hamming_pairwise_onehot

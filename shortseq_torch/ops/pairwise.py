@@ -14,7 +14,10 @@ one-time measurement (`calibrate_pairwise`), cached in memory and on disk:
 
 SHORTSEQ_TORCH_PAIRWISE=tiled|onehot|plain pins the choice (`plain` on a
 CUDA tensor raises).  There is no fallback: each call counts the path it
-took in `pairwise_hamming_auto.paths`, and kernel B its launches.
+took in `pairwise_hamming_auto.paths`, and kernel B its launches, and
+`LAST_PAIRWISE_PATH` names the last call's path.  The JAX package's names
+for them: `pallas` is `tiled` (kernel B), `mxu` is `onehot`, `jnp` is
+`plain`; its `jnp-fallback` has no counterpart.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ from .lanes import from_numpy_u32
 
 # The grid's y dimension (65535 blocks) times the 128-row tile.
 _MAX_ROWS = 65535 * 128
+
+#: The path of the last pairwise_hamming_auto call: "tiled", "onehot" or
+#: "plain" (None before the first).
+LAST_PAIRWISE_PATH: str | None = None
 
 
 def hamming_pairwise_tiled(a: torch.Tensor, b: torch.Tensor,
@@ -215,6 +222,7 @@ def pairwise_hamming_auto(a, b) -> torch.Tensor:
     fastest exact formulation for the device and lane width (module
     docstring).  Operands are tensors on one device, or numpy uint32
     arrays, which go to the CPU."""
+    global LAST_PAIRWISE_PATH
     if isinstance(a, np.ndarray):
         a = from_numpy_u32(a)
     if isinstance(b, np.ndarray):
@@ -234,6 +242,7 @@ def pairwise_hamming_auto(a, b) -> torch.Tensor:
         choice = _CALIBRATION[key]
     out = _FORMULATIONS[choice](a, b)
     pairwise_hamming_auto.paths[choice] += 1
+    LAST_PAIRWISE_PATH = choice
     return out
 
 

@@ -129,7 +129,20 @@ def blocks_to_lanes(blocks: Sequence[int], n_lanes: int) -> List[int]:
     return lanes[:n_lanes]
 
 
+def lanes_to_blocks(lanes: Sequence[int], n_blocks: int) -> List[int]:
+    """Inverse of blocks_to_lanes."""
+    return [
+        (lanes[2 * i] & 0xFFFFFFFF) | ((lanes[2 * i + 1] & 0xFFFFFFFF) << 32)
+        for i in range(n_blocks)
+    ]
+
+
 def check_same_length(len_a: int, len_b: int) -> None:
     if len_a != len_b:
         raise Exception(f"{LENGTH_MISMATCH_MSG} ({len_a} != {len_b})")
+
+
+def str_hamming(a: str, b: str) -> int:
+    """The test oracle the reference uses (unit_tests_main.py:160)."""
+    return sum(x != y for x, y in zip(a, b))
 

@@ -54,25 +54,32 @@ def _primary_context(index: int) -> bool:
 
 
 def _warm(device: torch.device) -> None:
-    # Without a driver or a context the caller's own first use of the
-    # card raises, where it can be handled.
-    if not _primary_context(device.index or 0):
+    # `device` carries its card index (start_transfer_warmup).  When no
+    # context can be made, the caller's own first use of the card raises,
+    # where it can be handled.
+    if not _primary_context(device.index):
         return
     try:
+        # The current card is per thread: this one starts on card 0.
+        torch.cuda.set_device(device.index)
         torch.zeros(1, device=device).cpu()
-    except RuntimeError:
+    except Exception:
         pass
 
 
 def start_transfer_warmup(device="cuda") -> None:
-    """Create the CUDA context of `device` (a bare "cuda" is the current
-    card of the new thread, card 0 unless it names one) and make one tiny
-    device-to-host copy in a background thread, once per process.  A
-    device that is not CUDA starts nothing."""
+    """Create the CUDA context of `device` and make one tiny
+    device-to-host copy in a background thread, once per process.  A bare
+    "cuda" is the caller's current card, read on the caller's thread
+    (card 0 while the caller has not touched CUDA).  A device that is not
+    CUDA starts nothing."""
     global _thread
     device = torch.device(device)
     if device.type != "cuda" or os.environ.get("SHORTSEQ_TORCH_NO_WARMUP") == "1":
         return
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device()
+                              if torch.cuda.is_initialized() else 0)
     with _lock:
         if _thread is None:
             _thread = threading.Thread(target=_warm, args=(device,),

@@ -176,7 +176,30 @@ def test_warmup_is_idempotent(warmup):
     twarmup.start_transfer_warmup()
     assert twarmup._thread is first and not first.daemon
     _join(first)
-    assert warmup == [torch.device("cuda")]
+    assert warmup == [torch.device("cuda", 0)]
+
+
+@pytest.mark.parametrize("device, current, want", [
+    ("cuda", None, 0), ("cuda:1", None, 1), ("cuda", 1, 1),
+    (torch.device("cuda", 0), 1, 0)])
+def test_warmup_thread_gets_the_callers_card(monkeypatch, device, current,
+                                             want):
+    """The index reaches the thread resolved on the caller's thread: a
+    bare "cuda" is the caller's current card once it has set one (CUDA's
+    current card is per thread, and a new thread starts on card 0), and
+    the thread makes that card current before its copy."""
+    seen = {"context": [], "set_device": []}
+    monkeypatch.setattr(twarmup, "_thread", None)
+    monkeypatch.delenv("SHORTSEQ_TORCH_NO_WARMUP", raising=False)
+    monkeypatch.setattr(twarmup, "_primary_context",
+                        lambda i: seen["context"].append(i) or True)
+    monkeypatch.setattr(torch.cuda, "is_initialized",
+                        lambda: current is not None)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "set_device", seen["set_device"].append)
+    twarmup.start_transfer_warmup(device)
+    _join(twarmup._thread)
+    assert seen == {"context": [want], "set_device": [want]}
 
 
 @pytest.mark.parametrize("device", ["cpu", torch.device("cpu")])
