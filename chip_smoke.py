@@ -5,7 +5,7 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A to H and K10 (nvcc, sm_90a, one process per source),
+  build      kernels A to I and K10 (nvcc, sm_90a, one process per source),
              the host library and the object extension (g++) from this
              checkout's sources, all started together, with the seconds
              each took, and the object backend
@@ -43,7 +43,16 @@ Phases, one line each; any failure raises and exits nonzero:
              whole unique_count (sort + D), beside torch.unique of the
              (length, row) keys with return_counts at [10M, 2] and
              [2M, 64] (the library call for unit weights; its groups
-             checked against D's); kernel A's pack-only mode at [2M, 40]
+             checked against D's); kernel I (the row hash of
+             unique_count's hash path, rows over 6 lanes) exact at [2M,
+             64], [2M, 10] and [100003, 7] off 16-byte alignment with PAD
+             rows at seeds 0 and 7, D with its keys on collision_cases,
+             I's event and device times at [2M, 64] Zipf beside its bound
+             with the hash path's sorts, D, the whole unique_count, the
+             lex path and torch.unique, a forced collision (seed 0
+             colliding: the CPU's table; every seed: OverflowError), and
+             unique_count on the card equal to the CPU's at [2M, 64] and
+             [100003, 7]; kernel A's pack-only mode at [2M, 40]
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
              words), E at [2M, 10], F (kernel_f) static (8, 100) (one
              launch a call) and ragged at [2M, 10] with its wrapper's host
@@ -107,7 +116,8 @@ Phases, one line each; any failure raises and exits nonzero:
              scattered), read_and_count_fastq_distributed(n_shards=4),
              count_sharded_auto at capacity factor 0.25 on file 2's
              64-lane words (tier 2) and file 1's 2-lane words (tier 3),
-             each equal to phase count's table, and DistributedCountTable's
+             each equal to phase count's table array for array, and
+             DistributedCountTable's
              len, total, most_common(20), get and values equal to
              CountTable's; K10 against its plain version (edge cases at
              its plan's tile and look-back edges, D = 1024 and 1025 on
@@ -126,16 +136,17 @@ Phases, one line each; any failure raises and exits nonzero:
              C launched) equal to device="cpu"; kernel H at the row bands
              of 2, 4 and 8 ranks (UMI_BANDS), each exact against the
              whole-matrix call, with event and device times beside its
-             popcount bound; A, E, G and unique_count under torch.profiler,
-             each launch inside its ssq.* range, and A's and G's wrapper
+             popcount bound; A, E, G and unique_count (D, and I at 8
+             lanes) under torch.profiler, each launch inside its ssq.*
+             range, and A's and G's wrapper
              host time with and without the range; count's file 3 counted
              as a fresh process's first call, 3 times with the CUDA warmup
              thread and 3 without, in turns
-  counters   kernels A to H and K10 all launched while phases umi_scale,
+  counters   kernels A to I and K10 all launched while phases umi_scale,
              umi_cli, count, batch, folded, sharded and umi_mesh drove the
              main path (counts reset just before each run), H in umi_scale,
              umi_cli and umi_mesh, B + C in the overflow tier of umi_scale
-             and umi_mesh, D during count, A in
+             and umi_mesh, D during count, I in count and batch, A in
              count_matrix_device, A's pack-only mode, E, F and G in batch,
              A 5 times and its pack-only mode 3 times in folded,
              K10 in sharded, and the pairwise choice in batch; all three
@@ -152,6 +163,7 @@ data comes from numpy seeds, so every run checks the same inputs.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -583,6 +595,7 @@ def kernel_checks(torch, results, lines):
     del slab
 
     results["unique_count"] = kernel_d(torch, timer, rng, lines)
+    results["row_hash"] = kernel_i(torch, timer, rng, lines)
     results.update(batch_kernels(torch, timer, rng, lines))
 
 
@@ -1173,6 +1186,62 @@ def d_edge_cases(tile):
     return cases
 
 
+#: The largest sort key, kernel I's key of every PAD row.
+PAD_KEY = 2**63 - 1
+
+
+def collision_cases(tile, widths=(7, 10, 64)):
+    """Kernel D's collision cases on the hash path, built from its tile's
+    row count: (name, words uint32 [N, W], lengths, weights, keys int64
+    [N], collision 0 or 1).  The rows are given in sorted order (perm =
+    arange(N)) with ascending keys, so each pair sits exactly where its
+    name says: across a tile edge, at rows 0 and 1, across a thread's 8
+    rows, two rows that differ only in length; and cases that must not
+    flag: a live row with the PAD key next to PAD rows (whose stale words
+    differ), equal rows sharing a key across a tile edge, distinct keys."""
+    import numpy as np
+
+    pad = 2**31 - 1
+    rng = np.random.default_rng(12)
+    cases = []
+    for w in widths:
+        def distinct(n):
+            words = rng.integers(0, 2**32, size=(n, w),
+                                 dtype=np.uint64).astype(np.uint32)
+            words[:, 0] = np.arange(n)
+            keys = np.arange(n, dtype=np.int64) * 7919 - 2**40
+            return words, np.full(n, 150, np.int32), keys
+
+        def add(name, words, lengths, keys, want):
+            cases.append((f"{name} W={w}", words, lengths,
+                          rng.integers(1, 5, size=len(lengths))
+                          .astype(np.int32), keys, want))
+
+        n = 2 * tile + 5
+        for name, i in (("pair across a tile edge", tile),
+                        ("pair at rows 0 and 1", 1),
+                        ("pair across a thread's rows", 8)):
+            words, lens, keys = distinct(n)
+            keys[i] = keys[i - 1]
+            add(name, words, lens, keys, 1)
+        words, lens, keys = distinct(n)
+        words[101] = words[100]
+        lens[101] = 151
+        keys[101] = keys[100]
+        add("pair differing in length only", words, lens, keys, 1)
+        words, lens, keys = distinct(tile + 23)
+        lens[tile + 3:] = pad
+        keys[tile + 2:] = PAD_KEY
+        add("live row with the PAD key, then PAD rows", words, lens, keys, 0)
+        sizes = [3, tile + 1, 5]
+        words, lens, keys = distinct(len(sizes))
+        rows = np.repeat(np.arange(len(sizes)), sizes)
+        add("equal rows with one key across a tile edge", words[rows],
+            lens[rows], keys[rows], 0)
+        add("distinct keys", *distinct(n), 0)
+    return cases
+
+
 def launch_split(torch, fn, tags, runs=3):
     """launch_times as text: each tag's device ms a launch and the
     launches seen in `runs` calls."""
@@ -1316,6 +1385,184 @@ def kernel_d(torch, timer, rng, lines):
                 max_abs_err=max(errs), ms=d_main[0], plain_ms=d_main[1],
                 bound_ms=d_main[2][0], bound_by=d_main[2][1],
                 library_ms=d_main[3])
+
+
+def file2_words(torch, rng, n=2_000_000, keys=200_000):
+    """File 2's 64-lane bucket on the card: n reads of 150 nt drawn
+    Zipf(1.2) from `keys` random ones (lanes past nt 150 zero).  Returns
+    (words [n, 64], lengths [n], weights [n] of ones)."""
+    pool = card_lanes(torch, rng, keys, 64)
+    pool[:, 10:] = 0
+    pool[:, 9] &= (1 << 2 * (150 - 144)) - 1
+    pick = torch.from_numpy(zipf_pick(rng, keys, n)).cuda()
+    words = pool[pick].contiguous()
+    del pool
+    return (words, torch.full((n,), 150, dtype=torch.int32, device="cuda"),
+            torch.ones(n, dtype=torch.int32, device="cuda"))
+
+
+def kernel_i(torch, timer, rng, lines):
+    """Kernel I (the row hash of unique_count's hash path) and kernel D's
+    collision check, on the card:
+      - I exact against its plain version at [2M,64] (file 2's bucket),
+        [2M,10] (PackedBatch's 150-nt rows), [100003,7] with its rows 4
+        bytes off 16-byte alignment, each with 1% PAD rows, at seeds 0
+        and 7;
+      - D with the keys (s_hash) exact against its plain version on
+        collision_cases, each collision word as the case says;
+      - at [2M,64] Zipf: I by CUDA events and device time beside its
+        bound, the hash path's two sorts, D with the keys, the whole
+        unique_count, the lex path (sort_rows + D) and torch.unique;
+      - a forced collision at [200000,64]: a _row_hash that collides for
+        seed 0 only gives the table of the CPU under the same patch, one
+        that always collides gives a table every materialization refuses;
+      - unique_count on the card against unique_count on the CPU (the
+        plain versions, which the CPU tests hold to the JAX package),
+        array for array, at [2M,64] Zipf and [100003,7] with PAD rows of
+        stale words (after every timing: the CPU work slows later
+        launches).
+    Returns the JSON line's row_hash entry ([2M,64])."""
+    import numpy as np
+
+    from shortseq_torch.count import device as cdev
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    pad = cdev.PAD_LENGTH
+    words, lengths, weights = file2_words(torch, rng)
+    n = len(lengths)
+    w150 = card_lanes(torch, rng, n, 10)
+    w150[:, 9] &= (1 << 2 * (150 - 144)) - 1
+    m = 100_003
+    off = torch.empty(m * 7 + 1, dtype=torch.int32, device="cuda")[1:] \
+        .view(m, 7)
+    off.copy_(card_lanes(torch, rng, m, 7))
+    if off.data_ptr() % 16 == 0:
+        raise AssertionError("the W = 7 rows are not off 16 bytes")
+    errs = []
+    for name, wd in (("[2M,64]", words), ("[2M,10]", w150),
+                     ("[100003,7] off 16 bytes", off)):
+        ln = rng.integers(97, 301, size=len(wd)).astype(np.int32)
+        ln[rng.random(len(wd)) < 0.01] = pad
+        ln = torch.from_numpy(ln).cuda()
+        for seed in (0, 7):
+            got = cdev._row_hash(wd, ln, seed)
+            errs.append(exact(f"I {name} seed {seed}", [got],
+                              [cdev._row_hash_plain(wd, ln, seed)]))
+            if not bool((got[ln == pad] == PAD_KEY).all()):
+                raise AssertionError(f"I {name}: a PAD row's key")
+    del w150
+    cases = collision_cases(cdev.GROUP_TILE_ROWS)
+    for name, wd, ln, wt, keys, want in cases:
+        args = [from_numpy_u32(wd).cuda(), torch.from_numpy(ln).cuda(),
+                torch.from_numpy(wt).cuda(),
+                torch.arange(len(ln), device="cuda")]
+        keys = torch.from_numpy(keys).cuda()
+        got = cdev.group_count(*args, len(ln), keys)
+        exact(f"D with keys, {name}", got,
+              cdev.group_count_plain(*args, len(ln), keys))
+        if int(got[4]) != want:
+            raise AssertionError(f"D with keys, {name}: collision word "
+                                 f"{int(got[4])}, want {want}")
+    lines.append(f"I: exact at [2M,64], [2M,10] and [100003,7] off 16 "
+                 f"bytes, 1% PAD rows, seeds 0 and 7; D with keys: "
+                 f"{len(cases)} collision cases exact, each word as wanted")
+
+    keys = cdev._row_hash(words, lengths, 0)
+    s_hash, perm = cdev._hash_order(words, lengths, 0)
+    groups = int(cdev.group_count(words, lengths, weights, perm, n,
+                                  s_hash)[3])
+
+    def hash_sorts():
+        by_length = torch.sort(lengths, stable=True).indices
+        return torch.sort(keys[by_length], stable=True)
+
+    def unique():
+        return torch.unique(torch.cat([lengths[:, None], words], 1), dim=0,
+                            return_counts=True)
+
+    t = timer([lambda: cdev._row_hash(words, lengths, 0),
+               lambda: cdev._row_hash_plain(words, lengths, 0),
+               hash_sorts,
+               lambda: cdev.group_count(words, lengths, weights, perm, n,
+                                        s_hash),
+               lambda: cdev.unique_count(words, lengths, weights),
+               lambda: cdev.group_count(words, lengths, weights,
+                                        cdev.sort_rows(words, lengths), n),
+               unique], runs=5)
+    bnd = bound([words, lengths], [keys])
+    split = launch_split(torch, lambda: cdev._row_hash(words, lengths, 0),
+                         ("row_hash",))
+    d_split = launch_split(
+        torch, lambda: cdev.group_count(words, lengths, weights, perm, n,
+                                        s_hash),
+        ("group_tile", "group_finish", "fill"))
+    lines.append(
+        f"I [2M,64] Zipf ({groups} groups): {t[0]:.4f} ms, plain "
+        f"{t[1]:.4f} ms; {split}; {bound_text(bnd)}. The hash path: I, the "
+        f"two sorts {t[2]:.4f} ms, D with keys {t[3]:.4f} ms ({d_split}); "
+        f"unique_count {t[4]:.4f} ms; the lex path (sort_rows + D) "
+        f"{t[5]:.4f} ms; torch.unique {t[6]:.4f} ms")
+    del keys, s_hash, perm
+
+    # A forced collision: seed 0 collides, seed 1 does not.
+    sub = [x[:200_000].contiguous() for x in (words, lengths, weights)]
+    real = cdev._row_hash
+    seeds = []
+
+    def first_seed_collides(wd, ln, seed):
+        seeds.append(seed)
+        out = real(wd, ln, seed)
+        return torch.zeros_like(out) if seed == 0 else out
+
+    cdev._row_hash = first_seed_collides
+    try:
+        card = cdev.unique_count(*sub)
+        cpu = cdev.unique_count(*(x.cpu() for x in sub))
+        if seeds != [0, 1, 0, 1]:
+            raise AssertionError(f"forced collision: seeds drawn {seeds}")
+        exact("unique_count [200000,64], seed 0 colliding",
+              [x.cpu() for x in card], cpu)
+        cdev._row_hash = lambda wd, ln, seed: torch.zeros(
+            len(ln), dtype=torch.int64, device=wd.device)
+        try:
+            cdev.table_to_host(cdev.unique_count(*sub))
+            raise AssertionError("an always-colliding hash gave a table")
+        except OverflowError:
+            pass
+    finally:
+        cdev._row_hash = real
+    plain = [x.cpu() for x in cdev.unique_count(*sub)]
+    if not (torch.equal(plain[3], cpu[3]) and torch.equal(
+            plain[2][:int(cpu[3])].sort().values,
+            cpu[2][:int(cpu[3])].sort().values)):
+        raise AssertionError("forced collision: groups differ from seed 0's")
+    lines.append(f"forced collision at [200000,64]: seed 0 colliding, seed 1 "
+                 f"drawn, table equal to the CPU's under the same patch "
+                 f"({int(cpu[3])} groups); a hash colliding for all "
+                 f"{cdev._HASH_MAX_TRIES} seeds: OverflowError")
+    del sub
+
+    # The card against the CPU, array for array.
+    t0 = time.perf_counter()
+    card = cdev.unique_count(words, lengths, weights)
+    cpu = cdev.unique_count(words.cpu(), lengths.cpu(), weights.cpu())
+    exact("unique_count [2M,64] card vs CPU", [x.cpu() for x in card], cpu)
+    ln = rng.integers(97, 113, size=m).astype(np.int32)
+    ln[rng.random(m) < 0.1] = pad
+    ln = torch.from_numpy(ln).cuda()
+    few = torch.from_numpy(rng.integers(0, 50, size=m)).cuda()
+    off.copy_(off[:50][few])                   # 50 keys, stale PAD words
+    wt = torch.from_numpy(rng.integers(1, 5, size=m).astype(np.int32)).cuda()
+    exact("unique_count [100003,7] card vs CPU",
+          [x.cpu() for x in cdev.unique_count(off, ln, wt)],
+          cdev.unique_count(off.cpu(), ln.cpu(), wt.cpu()))
+    lines.append(f"unique_count on the card equal to the CPU's array for "
+                 f"array at [2M,64] Zipf ({int(card[3])} groups) and "
+                 f"[100003,7] with PAD rows of stale words "
+                 f"({time.perf_counter() - t0:.1f} s with the CPU's)")
+    return dict(source=SOURCE_D, replaces="shortseq_tpu/count/device.py:62",
+                max_abs_err=max(errs), ms=t[0], plain_ms=t[1],
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
 
 
 def batch_kernels(torch, timer, rng, lines, extras=True):
@@ -1837,8 +2084,115 @@ def g_rows(edges=True, other=None):
     print("  during the timings: " + smi.summary(), flush=True)
 
 
+def d_against(other):
+    """Kernel D of this tree and of another checkout (see load_other, e.g.
+    the parent commit unpacked into build/parent/), in turns in one
+    process: `python3 -c "import chip_smoke as cs;
+    cs.d_against('build/parent')"`.  At kernel_d's [10M,2] random and
+    [1M,6] pool shapes (the lex path, no keys), each tree's D exact
+    against this tree's plain version, its CUDA-event time (median of 7)
+    and its device time a launch."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from shortseq_torch.count import device as cdev
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    odev = importlib.import_module(load_other(other).__name__
+                                   + ".count.device")
+    timer, rng = Timer(torch), np.random.default_rng(0)
+    for n, w, keys in ((10_000_000, 2, None), (1_000_000, 6, 300_000)):
+        words = card_lanes(torch, rng, keys or n, w)
+        lengths = torch.from_numpy(rng.integers(15, 33, size=keys or n)
+                                   .astype(np.int32)).cuda()
+        if keys:
+            pick = torch.from_numpy(rng.integers(0, keys, size=n)).cuda()
+            words, lengths = words[pick].contiguous(), lengths[pick]
+        weights = torch.ones(n, dtype=torch.int32, device="cuda")
+        perm = cdev.sort_rows(words, lengths)
+        want = cdev.group_count_plain(words, lengths, weights, perm, n)
+        fns = {"this tree": lambda: cdev.group_count(words, lengths, weights,
+                                                     perm, n),
+               f"the tree at {other}": lambda: odev.group_count(
+                   words, lengths, weights, perm, n)}
+        for name, fn in fns.items():
+            exact(f"D [{n},{w}], {name}", fn(), want)
+        times = timer(list(fns.values()))
+        for (name, fn), ms in zip(fns.items(), times):
+            print(f"  D [{n},{w}], {name}: {ms:.4f} ms; "
+                  + launch_split(torch, fn, ("group_tile", "group_finish")),
+                  flush=True)
+        del words, lengths, weights, perm, want
+
+
+def count_walls(other=None, reps=5):
+    """Count files 2 and 3 on the card (about two minutes with the build):
+    `python3 -c "import chip_smoke as cs; cs.count_walls()"` from a
+    checkout's root.  read_and_count_fastq_table(engine="device") on
+    phase count's file 2 (2M reads of 150 nt, Zipf: one 64-lane bucket)
+    and file 3 (1M reads of 0-300 nt: three buckets), each as sent (one
+    transfer a bucket) and with SHORTSEQ_TORCH_H2D_CHUNK_ROWS=2^19 (file
+    2's bucket in 4 chunks, each counted as it lands); the wall by host
+    clock with its read/count split, median of `reps` calls in turns.
+    With `other` (a checkout's root, see load_other, e.g. the parent
+    commit unpacked into build/parent/) that tree's walls too, in turns
+    with this one's, its tables holding the same rows."""
+    import os
+
+    import torch
+
+    import shortseq_torch
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    trees = {"this tree": shortseq_torch}
+    if other is not None:
+        trees[f"the tree at {other}"] = load_other(other)
+    with tempfile.TemporaryDirectory() as workdir:
+        files = {"file 2": zipf_file(workdir)[0],
+                 "file 3": mixed_file(workdir)[0]}
+        modes = {"as sent": None, "4 chunks": str(1 << 19)}
+        walls, want = {}, {}
+        for _ in range(reps + 1):                  # the first: warm-up
+            for (fname, path), (mode, rows), (tree, mod) in \
+                    itertools.product(files.items(), modes.items(),
+                                      trees.items()):
+                if rows is None:
+                    os.environ.pop("SHORTSEQ_TORCH_H2D_CHUNK_ROWS", None)
+                else:
+                    os.environ["SHORTSEQ_TORCH_H2D_CHUNK_ROWS"] = rows
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                table = mod.read_and_count_fastq_table(
+                    str(path), engine="device", device="cuda")
+                wall = time.perf_counter() - t0
+                key = (fname, mode, tree)
+                if key not in walls:
+                    walls[key] = []
+                    assert_same_rows(live_rows(table),
+                                     want.setdefault(fname, live_rows(table)),
+                                     f"{fname} {mode}, {tree}")
+                else:
+                    walls[key].append((wall, table._read_seconds))
+                del table
+        os.environ.pop("SHORTSEQ_TORCH_H2D_CHUNK_ROWS", None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    for (fname, mode, tree), ws in walls.items():
+        wall = statistics.median(w for w, _ in ws)
+        read = statistics.median(r for _, r in ws)
+        print(f"  {fname} {mode}, {tree}: wall {wall:.3f} s (read "
+              f"{read:.3f} s, count {wall - read:.3f} s; walls "
+              + ", ".join(f"{w:.3f}" for w, _ in ws) + f"), {smi}",
+              flush=True)
+
+
 class MainPath:
-    """Launch counts of kernels A to H and K10 over the main path's runs
+    """Launch counts of kernels A to I and K10 over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
     (`last`); K8's reads' calls in all (`k8_calls`)."""
@@ -1856,6 +2210,7 @@ class MainPath:
                          "neighbor_extract": dedup.neighbor_extract,
                          "neighbor_lists_fused": dedup.neighbor_lists_fused,
                          "unique_count": cdev.group_count,
+                         "row_hash": cdev._row_hash,
                          "pack_words": bitpack.pack_words_u32,
                          "unpack_ascii": bitpack.unpack_ascii,
                          "trim_words": batch.trim_words_ragged,
@@ -2039,9 +2394,25 @@ def live_rows(table):
     return out
 
 
+def assert_same_tables(got, want, what):
+    """Equal live tables, bucket by bucket, array for array: two tables
+    of the device engine, whose order is unique_count's."""
+    import numpy as np
+
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: buckets {sorted(got)} vs "
+                             f"{sorted(want)}")
+    for width in got:
+        if not all(np.array_equal(x, y)
+                   for x, y in zip(got[width], want[width])):
+            raise AssertionError(f"{what}: {width}-lane tables differ")
+
+
 def assert_same_rows(got, want, what):
     """Equal live tables, bucket by bucket, as row-sorted arrays (rows
-    ordered by length, then the lanes as unsigned)."""
+    ordered by length, then the lanes as unsigned): the device engine's
+    table against the host engine's, which keeps the order of its own
+    hash counter."""
     import numpy as np
 
     def ordered(w, lens, cnts):
@@ -2070,15 +2441,22 @@ def count_files(workdir):
     files["10m_15-32nt"] = (Path(workdir) / "reads_10m.fastq", len(lens))
     write_fastq_ragged(files["10m_15-32nt"][0],
                        alpha[rng.integers(0, 4, size=int(lens.sum()))], lens)
-    # 2: 2M reads of 150 nt, PCR duplicates drawn Zipf(1.2) from 200k.
-    rng = np.random.default_rng(1)
-    mols = alpha[rng.integers(0, 4, size=(200_000, 150))]
-    files["2m_150nt_zipf"] = (Path(workdir) / "reads_150nt.fastq", 2_000_000)
-    write_fastq(files["2m_150nt_zipf"][0],
-                mols[zipf_pick(rng, 200_000, 2_000_000)])
-    del mols
+    files["2m_150nt_zipf"] = zipf_file(workdir)
     files["1m_0-300nt"] = mixed_file(workdir)
     return files
+
+
+def zipf_file(workdir):
+    """The count phase's file 2: 2M reads of 150 nt, PCR duplicates drawn
+    Zipf(1.2) from 200k molecules.  Returns (path, reads)."""
+    import numpy as np
+
+    alpha = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(1)
+    mols = alpha[rng.integers(0, 4, size=(200_000, 150))]
+    path = Path(workdir) / "reads_150nt.fastq"
+    write_fastq(path, mols[zipf_pick(rng, 200_000, 2_000_000)])
+    return path, 2_000_000
 
 
 def mixed_file(workdir):
@@ -2176,10 +2554,8 @@ def phase_count(torch, main_path, workdir, found):
         streamed, s_wall = count(path, "device")
     finally:
         del os.environ["SHORTSEQ_TORCH_STREAM_BYTES"]
-    whole = tables["10m_15-32nt"][2]
-    for width, rows in live_rows(streamed).items():
-        if not all(np.array_equal(x, y) for x, y in zip(rows, whole[width])):
-            raise AssertionError("streamed table differs from whole-file")
+    assert_same_tables(live_rows(streamed), tables["10m_15-32nt"][2],
+                       "streamed file 1 against the whole file")
     lines.append(f"10m_15-32nt streamed in "
                  f"{-(-os.path.getsize(path) // (256 << 20))} slices: "
                  f"{s_wall}, equal to the whole-file table")
@@ -2546,9 +2922,9 @@ def phase_sharded(torch, main_path, workdir, found, results):
 
     def same(table, want, what):
         w, lens, cnts = dp._table_to_host(table)
-        assert_same_rows({w.shape[1]: (np.asarray(w, np.uint32), lens,
-                                       np.asarray(cnts, np.int64))},
-                         want, what)
+        assert_same_tables({w.shape[1]: (np.asarray(w, np.uint32), lens,
+                                         np.asarray(cnts, np.int64))},
+                           want, what)
 
     def timed(fn, *args, **kwargs):
         torch.cuda.synchronize()
@@ -2777,9 +3153,10 @@ def h_bands(torch, lines):
 
 
 def scoped_launches(torch, workdir, lines):
-    """Kernels A, E, G and D (unique_count) once each under torch.profiler
-    (CPU and CUDA): every launch of each kernel must come from inside its
-    wrapper's ssq.* range, read from the Chrome trace (the runtime call of
+    """Kernels A, E, G, D and I (unique_count at 2 and 8 lanes) once each
+    under torch.profiler (CPU and CUDA): every launch of each kernel must
+    come from inside its wrapper's ssq.* range, read from the Chrome
+    trace (the runtime call of
     the kernel's correlation id within the range's host interval).  Then
     the host time a call of A's and G's wrappers with no profiler active,
     with their ranges (the `scoped` wrapper) and without (the function it
@@ -2804,7 +3181,9 @@ def scoped_launches(torch, workdir, lines):
              ("ssq.hamming_rows", "hamming_rows_kernel",
               lambda: hamming.hamming_rows(words, words)),
              ("ssq.unique_count", "group_tile_kernel",
-              lambda: unique_count(words, ln, ones)))
+              lambda: unique_count(words, ln, ones)),
+             ("ssq.unique_count", "row_hash_kernel",
+              lambda: unique_count(x, ln, ones)))
     for _, _, fn in calls:
         fn()
     torch.cuda.synchronize()
@@ -3147,6 +3526,10 @@ def main() -> int:
             raise AssertionError(f"kernels never launched: {missing}")
         if main_path.by_phase["count"]["unique_count"] == 0:
             raise AssertionError("kernel D never launched in phase count")
+        quiet = [p for p in ("count", "batch")
+                 if main_path.by_phase[p]["row_hash"] == 0]
+        if quiet:
+            raise AssertionError(f"kernel I never launched in {quiet}")
         umi = {p: main_path.by_phase[p]
                for p in ("umi_scale", "umi_cli", "umi_mesh")}
         quiet = [p for p, n in umi.items() if n["neighbor_lists_fused"] == 0]

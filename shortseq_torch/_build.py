@@ -237,10 +237,12 @@ _CUDA_SIGNATURES = {
     # cnt, rows, u, w, threshold, k, sms, stream
     "ssq_neighbor_lists": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                            _I64, _I32, _I32, _I32, _I32, _P],
-    # words, lengths, weights, perm, scratch, sums, u_words, u_lengths,
-    # n_unique, n, w, n_out, stream
-    "ssq_group_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
-                       _P],
+    # words, lengths, weights, perm, s_hash (None: no collision check),
+    # scratch, sums, u_words, u_lengths, n_unique, n, w, n_out, stream
+    "ssq_group_tile": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32,
+                       _I64, _P],
+    # words, lengths, keys, n, w, seed, stream
+    "ssq_row_hash": [_P, _P, _P, _I64, _I32, ctypes.c_uint32, _P],
     # u_words, u_lengths, counts, sums, scratch, n_out, w, stream
     "ssq_group_finish": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "ssq_group_tile_rows": [],

@@ -1,15 +1,28 @@
-// Kernel D: the group count of shortseq_torch's unique_count.
+// Kernels D and I: the group count and the row hash of shortseq_torch's
+// unique_count.
 //
-// Replaces the epilogue of shortseq_tpu/count/device.py unique_count
-// (:199-259): boundary flags, segment sums with the int32 wrap verdict,
-// the key scatter, n_unique over the live prefix, pad normalization and
-// the whole-table poison.  The sort before it is a stable LSD torch.sort
-// in count/device.py; it hands this kernel the permutation `perm` that
-// orders rows by (length, lane_0 .. lane_{W-1}), lanes unsigned, PAD rows
-// (length = int32 max) last.  Rows are read through `perm`, so the sorted
-// [N, W] matrix is never materialized.
+// Kernel D replaces the epilogue of shortseq_tpu/count/device.py
+// unique_count (:199-259): boundary flags, segment sums with the int32
+// wrap verdict, the key scatter, n_unique over the live prefix, pad
+// normalization and the whole-table poison.  The sort before it is
+// torch.sort in count/device.py; it hands this kernel the permutation
+// `perm` that orders rows by (length, lane_0 .. lane_{W-1}), lanes
+// unsigned (W <= 6), or by kernel I's key, then length (W > 6), PAD rows
+// (length = int32 max) last either way.  Rows are read through `perm`,
+// so the sorted [N, W] matrix is never materialized.
 //
-// What bounds it on the H100: bytes gathered through `perm`.  Each sorted
+// Kernel I replaces _row_hash (:62-91) and the PAD forcing of
+// _sort_rows_hash (:130-131): two murmur-style 32-bit mixes of a row's
+// length and lanes, fused into one int64 sort key.  A row's mix is a
+// chain in lane order, so one thread owns a row and loads it by the
+// widest vector that divides it.  Given the keys in perm order
+// (`s_hash`), D also reports the hash path's collision: two adjacent live
+// rows with equal keys that differ in length or in a lane
+// (_sort_rows_hash :136-141).  D compares every adjacent pair anyway, so
+// the check reads the keys of the rows that head a group and makes no
+// second pass over the rows.
+//
+// What bounds D on the H100: bytes gathered through `perm`.  Each sorted
 // row costs its words, its length and its weight, three reads at random
 // addresses; a read at a random address moves at least one 32-byte sector
 // however few of its bytes are used.  At W = 2 that is ~96 bytes of
@@ -19,7 +32,7 @@
 // the comparisons with the previous row on chip, and bounds each thread's
 // work by the tile, whatever the size of a group.
 //
-// Two launches:
+// D's two launches:
 //
 //   group_tile    one block of kThreads threads per tile of kTileRows
 //                 consecutive sorted rows.  The block loads its slice of
@@ -58,7 +71,9 @@
 //                 live negative weight sets the poison word; the row that
 //                 ends the live prefix writes n_unique (live rows are a
 //                 prefix of the sorted order), and the last tile writes
-//                 the group total.
+//                 the group total.  With `s_hash`, a row that heads a
+//                 group, is live, follows a live row and has that row's
+//                 key sets the collision word.
 //   group_finish  one thread per 16/8/4-byte vector of the n_out output
 //                 rows, in order.  Poison is global, so it is known only
 //                 after every tile: this pass writes each live group's
@@ -68,6 +83,16 @@
 //                 PAD, count 0 and zero words for the rows past the last
 //                 group.  Groups at or past n_out are dropped but still
 //                 count in n_unique, so fetch_table raises.
+//
+// Kernel I, one launch (row_hash): one thread a row, kThreads rows a
+// block.  A PAD row's key is the largest, (0xFFFFFFFF, 0xFFFFFFFF); any
+// other row's is the JAX package's arithmetic constant for constant in
+// uint32 with wrap.  The key is ((int32)(h1 ^ 0x80000000)) << 32 | h2,
+// whose signed order is the unsigned order of (h1, h2), as torch.sort
+// needs.  Bound: the rows' bytes, read once in order.  At W = 64 a
+// warp's 16-byte loads fall 256 bytes apart, so each load moves whole
+// 32-byte sectors and the next load finds the other half in L1 while
+// the line stays there.
 //
 // Nothing syncs with the host.
 
@@ -85,12 +110,13 @@ constexpr int kLoadBatch = 8;                 // independent gathers in flight
 constexpr int kRowSmemBytes = 48 * 1024;      // a W <= 6 tile fits whole
 constexpr unsigned kFull = 0xffffffffu;
 
-// The wrapper's zeroed int64 scratch: three words, then one look-back
+// The wrapper's zeroed int64 scratch: four words, then one look-back
 // state per tile, then one sum per output group.
 constexpr int kTileCounter = 0;
 constexpr int kPoison = 1;
 constexpr int kGroups = 2;
-constexpr int kStates = 3;
+constexpr int kCollision = 3;
+constexpr int kStates = 4;
 
 // A look-back state: status in the top two bits, a head count below.
 constexpr unsigned long long kAggregate = 1ull << 62;
@@ -166,6 +192,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int32_t* __restrict__ lengths,
                       const int32_t* __restrict__ weights,
                       const long long* __restrict__ perm,
+                      const long long* __restrict__ s_hash,
                       unsigned long long* __restrict__ scratch,
                       unsigned long long* __restrict__ sums,
                       V* __restrict__ u_words, int32_t* __restrict__ u_lengths,
@@ -311,6 +338,22 @@ __global__ void __launch_bounds__(kThreads)
       tail = 0;
     }
     tail += w[m];
+  }
+  if (s_hash != nullptr) {
+    // The hash path's collision: a live row that heads a group after a
+    // live row with the same key (rows of one key differ).
+    bool collide = false;
+#pragma unroll
+    for (int m = 0; m < kItems; ++m) {
+      const long long i = t0 + rb + m;
+      if (rb + m < nt && f[m] && i > 0 && len[m] != kPadLength) {
+        const int32_t prev = m > 0 ? len[m - 1]
+                                   : (rb > 0 ? s_len[rb - 1] : s_prev_len);
+        collide |= prev != kPadLength &&
+                   __ldg(s_hash + i) == __ldg(s_hash + i - 1);
+      }
+    }
+    if (collide) atomicOr(&scratch[kCollision], 1ull);
   }
 
   // Warp, then block, inclusive scan of (head?, segment sum, heads):
@@ -468,9 +511,9 @@ int vector_bytes(int w, uintptr_t addresses) {
 
 template <class V>
 int launch_tile(const void* words, const void* lengths, const void* weights,
-                const void* perm, void* scratch, void* sums, void* u_words,
-                void* u_lengths, void* n_unique, int64_t n, int w,
-                int64_t n_out, cudaStream_t stream) {
+                const void* perm, const void* s_hash, void* scratch,
+                void* sums, void* u_words, void* u_lengths, void* n_unique,
+                int64_t n, int w, int64_t n_out, cudaStream_t stream) {
   const int row_bytes = 4 * w;
   const int vpr = row_bytes / (int)sizeof(V);
   const int chunk_rows = chunk_rows_for(row_bytes);
@@ -482,7 +525,8 @@ int launch_tile(const void* words, const void* lengths, const void* weights,
   const long long tiles = (n + kTileRows - 1) / kTileRows;
   group_tile_kernel<V><<<(unsigned)tiles, kThreads, smem, stream>>>(
       (const V*)words, (const int32_t*)lengths, (const int32_t*)weights,
-      (const long long*)perm, (unsigned long long*)scratch,
+      (const long long*)perm, (const long long*)s_hash,
+      (unsigned long long*)scratch,
       (unsigned long long*)sums, (V*)u_words, (int32_t*)u_lengths,
       (int32_t*)n_unique, n, vpr, chunk_rows, n_out);
   return (int)cudaGetLastError();
@@ -501,6 +545,71 @@ int launch_finish(void* u_words, void* u_lengths, void* counts,
   return (int)cudaGetLastError();
 }
 
+// Kernel I.  The JAX package's _row_hash, constant for constant.
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+struct RowMix {
+  uint32_t h1, h2;
+  __device__ __forceinline__ void lane(uint32_t x) {
+    h1 = (h1 ^ x) * 0xCC9E2D51u;
+    h1 ^= h1 >> 15;
+    h2 = (h2 ^ x) * 0x1B873593u;
+    h2 ^= h2 >> 13;
+  }
+  __device__ __forceinline__ void vec(uint32_t v) { lane(v); }
+  __device__ __forceinline__ void vec(uint2 v) {
+    lane(v.x);
+    lane(v.y);
+  }
+  __device__ __forceinline__ void vec(uint4 v) {
+    lane(v.x);
+    lane(v.y);
+    lane(v.z);
+    lane(v.w);
+  }
+};
+
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+    row_hash_kernel(const V* __restrict__ words,
+                    const int32_t* __restrict__ lengths,
+                    unsigned long long* __restrict__ keys, long long n,
+                    int vpr, uint32_t seed) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int32_t length = __ldg(lengths + i);
+  uint32_t h1 = 0xFFFFFFFFu, h2 = 0xFFFFFFFFu;
+  if (length != kPadLength) {
+    const uint32_t len = (uint32_t)length;
+    const uint32_t s = seed * 0x27D4EB2Fu;
+    RowMix mix{(len ^ s) * 0x9E3779B1u,
+               (len + s + 0x165667B1u) * 0x85EBCA77u};
+    const V* row = words + i * vpr;
+#pragma unroll 8
+    for (int q = 0; q < vpr; ++q) mix.vec(__ldg(row + q));
+    h1 = fmix32(mix.h1);
+    h2 = fmix32(mix.h2);
+  }
+  keys[i] = (unsigned long long)(h1 ^ 0x80000000u) << 32 | h2;
+}
+
+template <class V>
+int launch_row_hash(const void* words, const void* lengths, void* keys,
+                    int64_t n, int w, uint32_t seed, cudaStream_t stream) {
+  const int vpr = 4 * w / (int)sizeof(V);
+  const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  row_hash_kernel<V><<<blocks, kThreads, 0, stream>>>(
+      (const V*)words, (const int32_t*)lengths, (unsigned long long*)keys, n,
+      vpr, seed);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -508,22 +617,38 @@ extern "C" {
 int ssq_group_tile_rows() { return kTileRows; }
 
 int ssq_group_tile(const void* words, const void* lengths, const void* weights,
-                   const void* perm, void* scratch, void* sums, void* u_words,
-                   void* u_lengths, void* n_unique, int64_t n, int w,
-                   int64_t n_out, void* stream) {
+                   const void* perm, const void* s_hash, void* scratch,
+                   void* sums, void* u_words, void* u_lengths, void* n_unique,
+                   int64_t n, int w, int64_t n_out, void* stream) {
   if (n == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (vector_bytes(w, (uintptr_t)words | (uintptr_t)u_words)) {
     case 16:
-      return launch_tile<uint4>(words, lengths, weights, perm, scratch, sums,
-                                u_words, u_lengths, n_unique, n, w, n_out, s);
+      return launch_tile<uint4>(words, lengths, weights, perm, s_hash,
+                                scratch, sums, u_words, u_lengths, n_unique,
+                                n, w, n_out, s);
     case 8:
-      return launch_tile<uint2>(words, lengths, weights, perm, scratch, sums,
-                                u_words, u_lengths, n_unique, n, w, n_out, s);
+      return launch_tile<uint2>(words, lengths, weights, perm, s_hash,
+                                scratch, sums, u_words, u_lengths, n_unique,
+                                n, w, n_out, s);
     default:
-      return launch_tile<uint32_t>(words, lengths, weights, perm, scratch,
-                                   sums, u_words, u_lengths, n_unique, n, w,
-                                   n_out, s);
+      return launch_tile<uint32_t>(words, lengths, weights, perm, s_hash,
+                                   scratch, sums, u_words, u_lengths,
+                                   n_unique, n, w, n_out, s);
+  }
+}
+
+int ssq_row_hash(const void* words, const void* lengths, void* keys,
+                 int64_t n, int w, uint32_t seed, void* stream) {
+  if (n == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (vector_bytes(w, (uintptr_t)words)) {
+    case 16:
+      return launch_row_hash<uint4>(words, lengths, keys, n, w, seed, s);
+    case 8:
+      return launch_row_hash<uint2>(words, lengths, keys, n, w, seed, s);
+    default:
+      return launch_row_hash<uint32_t>(words, lengths, keys, n, w, seed, s);
   }
 }
 

@@ -2,8 +2,8 @@
 A, E, F and G) against shortseq_tpu.PackedBatch built from the same
 sequences, mirroring tests/test_batch.py: packed words, lengths, decoded
 strings, distances and count tables must be identical (tolerance 0; count
-tables of batches wider than 6 lanes compare as Counters, since the JAX
-table is in hash order there).  Trimming is also held to the JAX
+tables in their dict order too, which is the row hash's order for
+batches wider than 6 lanes in both packages).  Trimming is also held to the JAX
 package's _trim_words / _trim_words_ragged directly, and to a Python
 slice over a wide fuzz.  The pairwise selector calibrates into a
 temporary directory; the JAX side is pinned to its broadcast path."""
@@ -231,15 +231,15 @@ class TestPackedBatch:
         assert str_counts(t.counts()) == str_counts(j.counts()) == want
 
     def test_counts_wide_rows(self, rng):
-        # W = 8 > 6 lanes: the JAX table is in hash order, so the two
-        # compare as Counters.
+        # W = 8 > 6 lanes: both tables are in the row hash's order, so the
+        # dicts agree in order too.
         seqs = [rand_sequence(rng, rng.randint(100, 128)) for _ in range(20)]
         seqs = seqs * 2 + seqs[:5]
         t, j = both(seqs)
         assert t.width_lanes == 8
-        assert (collections.Counter(str_counts(t.counts()))
-                == collections.Counter(str_counts(j.counts()))
-                == collections.Counter(seqs))
+        got = list(str_counts(t.counts()).items())
+        assert got == list(str_counts(j.counts()).items())
+        assert dict(got) == dict(collections.Counter(seqs))
 
     def test_invalid_base_raises(self):
         with pytest.raises(Exception, match="Unsupported base character: N"):

@@ -1,19 +1,19 @@
-"""shortseq_torch's unique_count (torch.sort + kernel D's plain version on
-the CPU) against shortseq_tpu.count.device.unique_count on the same
-inputs.  Mirrors tests/test_count_device.py:45-210 and the wrap and n_out
-cases of tests/test_advice_fixes.py.
+"""shortseq_torch's unique_count (torch.sort + the plain versions of
+kernels D and I on the CPU) against shortseq_tpu.count.device.unique_count
+on the same inputs.  Mirrors tests/test_count_device.py:45-210 and the
+wrap and n_out cases of tests/test_advice_fixes.py.
 
-For W <= 6 the two packages sort the same way, so every output array must
-be identical (so the edge cases of kernel D's tiles, built from
-GROUP_TILE_ROWS, are held at W <= 6); for W > 6 the JAX package groups by a seeded row hash, so
-its table is in hash order and the live prefixes are compared as
-row-sorted arrays.
+Both packages sort rows of up to 6 lanes by key and wider rows by the
+seeded row hash, so every output array must be identical at every width
+(the edge cases of kernel D's tiles, built from GROUP_TILE_ROWS, at
+W <= 6; the hash path at W = 7, 8, 10 and 64).  The row hash itself
+(_row_hash_plain) is held to JAX's _row_hash with its PAD forcing, the
+hash path's retry and exhaustion poison are held as the JAX tests hold
+them (a monkeypatched _row_hash), and kernel D's collision word to the
+edge cases that chip_smoke.collision_cases builds.
 
-No counterpart: test_hash_collision_retries_to_exact and
-test_hash_exhaustion_poisons_loudly (the port's radix sort is exact at
-every width, so it has no hash path, no retry loop and no exhaustion
-poison), and TestShardedCount (the sharded count comes with the dist
-slice).
+No counterpart: TestShardedCount (tests/test_torch_dist.py holds the
+sharded count).
 """
 
 import collections
@@ -25,6 +25,7 @@ import torch
 
 import shortseq_tpu.count.device as jdev
 import shortseq_torch.count.device as tdev
+from chip_smoke import PAD_KEY, collision_cases
 from shortseq_torch.ops.lanes import from_numpy_u32
 from shortseq_torch.oracle import blocks_to_lanes, encode_bytes
 
@@ -75,26 +76,6 @@ def _assert_exact(j, t):
         assert a.shape == b.shape
         np.testing.assert_array_equal(np.asarray(a, np.int64),
                                       np.asarray(b, np.int64))
-
-
-def _live_sorted(table):
-    w, l, c, n = table
-    n = int(n)
-    rows = np.concatenate([l[:n, None].astype(np.int64),
-                           w[:n].astype(np.int64),
-                           c[:n, None].astype(np.int64)], axis=1)
-    return rows[np.lexsort(rows.T[::-1])]
-
-
-def _assert_same_rows(j, t):
-    assert int(j[3]) == int(t[3])
-    np.testing.assert_array_equal(_live_sorted(j), _live_sorted(t))
-    n = int(t[3])
-    assert (t[1][n:] == PAD).all() and (t[2][n:] == 0).all()
-
-
-def _assert_match(j, t, lanes):
-    (_assert_exact if lanes <= 6 else _assert_same_rows)(j, t)
 
 
 def test_exact_counts_small():
@@ -174,7 +155,7 @@ def test_widths_match_jax(lanes, lo, hi):
     words, lengths = _pack(seqs, lanes)
     perm = rng.permutation(len(seqs))
     j, t = _both(words[perm], lengths[perm])
-    _assert_match(j, t, lanes)
+    _assert_exact(j, t)
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 5, 6, 64])
@@ -244,7 +225,8 @@ def test_n_out(n_out):
         assert tdev.fetch_table(*table)[2].tolist() == [2, 2, 1, 1]
 
 
-@pytest.mark.parametrize("lanes,n_out", [(2, None), (6, 5)])
+@pytest.mark.parametrize("lanes,n_out", [(2, None), (6, 5), (8, None),
+                                         (64, 3)])
 def test_empty_batch(lanes, n_out):
     j, t = _both(np.zeros((0, lanes), np.uint32), np.zeros(0, np.int32),
                  n_out=n_out)
@@ -460,3 +442,237 @@ def test_counts_to_host_scattered_matches_jax():
         from_numpy_u32(words), torch.from_numpy(lengths),
         torch.from_numpy(counts))
     assert got == want and len(got) == int((lengths != PAD).sum())
+
+
+# --- the hash path: rows over _LEX_SORT_MAX_LANES lanes ---------------------
+
+HASH_WIDTHS = [7, 8, 10, 64]
+
+
+def _jax_keys(words, lengths, seed):
+    """JAX's _row_hash with _sort_rows_hash's PAD forcing, fused into
+    kernel I's int64 key: ((int32)(h1 ^ 2^31)) << 32 | h2."""
+    h1, h2 = jdev._row_hash(jnp.asarray(words), jnp.asarray(lengths),
+                            jnp.int32(seed))
+    live = lengths != PAD
+    h1 = np.where(live, np.asarray(h1), np.uint32(0xFFFFFFFF))
+    h2 = np.where(live, np.asarray(h2), np.uint32(0xFFFFFFFF))
+    hi = (h1 ^ np.uint32(0x80000000)).view(np.int32).astype(np.int64)
+    return (hi << 32) | h2.astype(np.int64)
+
+
+def _wide_rows(lanes, seed, n=240, keys=40):
+    """n rows drawn from `keys` distinct ones with lanes of any 32 bits
+    (the high bit set in about half), lengths 97-300, a fifth of the rows
+    dead (PAD) with their stale words kept."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 2**32, size=(keys, lanes),
+                        dtype=np.uint64).astype(np.uint32)
+    pool_len = rng.integers(97, 301, size=keys).astype(np.int32)
+    pick = rng.integers(0, keys, size=n)
+    words, lengths = pool[pick], pool_len[pick]
+    lengths[rng.random(n) < 0.2] = PAD
+    return words, lengths
+
+
+@pytest.mark.parametrize("lanes", HASH_WIDTHS)
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_row_hash_plain_matches_jax(seed, lanes):
+    words, lengths = _wide_rows(lanes, 20 + seed)
+    assert (words >= 2**31).any() and (lengths == PAD).any()
+    got = tdev._row_hash_plain(from_numpy_u32(words),
+                               torch.from_numpy(lengths), seed)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_keys(words, lengths, seed))
+    # A CPU tensor takes the plain version through the wrapper.
+    assert torch.equal(tdev._row_hash(from_numpy_u32(words),
+                                      torch.from_numpy(lengths), seed), got)
+
+
+@pytest.mark.parametrize("n_out", ["all", "below", "above"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unit", "weights"])
+@pytest.mark.parametrize("lanes", HASH_WIDTHS)
+def test_hash_path_matches_jax(lanes, weighted, n_out):
+    """unique_count at W > 6: every output array equals JAX's, the
+    stale words of dead groups past n_unique included."""
+    words, lengths = _wide_rows(lanes, lanes)
+    rng = np.random.default_rng(lanes + 100)
+    weights = rng.integers(0, 9, size=len(lengths)) if weighted else None
+    groups = len({(int(l), w.tobytes())
+                  for w, l in zip(words, lengths) if l != PAD})
+    n_out = {"all": None, "below": groups // 2,
+             "above": len(lengths) + 7}[n_out]
+    j, t = _both(words, lengths, weights, n_out=n_out)
+    _assert_exact(j, t)
+    assert int(t[3]) == groups
+
+
+@pytest.mark.parametrize("lanes", HASH_WIDTHS)
+def test_sort_rows_hash_matches_jax(lanes):
+    """_sort_rows_hash's 4-tuple: the same lengths and rows in the same
+    order, and the same weights per group (the JAX sort need not keep
+    equal rows in input order)."""
+    words, lengths = _wide_rows(lanes, 30 + lanes)
+    weights = np.arange(len(lengths), dtype=np.int32)
+    j = [np.asarray(x) for x in jdev._sort_rows_hash(
+        jnp.asarray(words), jnp.asarray(lengths), jnp.asarray(weights))]
+    t = tdev._sort_rows_hash(from_numpy_u32(words), torch.from_numpy(lengths),
+                             torch.from_numpy(weights))
+    t = [t[0].numpy(), t[1].numpy().view(np.uint32), t[2].numpy(),
+         t[3].numpy()]
+    np.testing.assert_array_equal(t[0], j[0])
+    np.testing.assert_array_equal(t[1], j[1])
+    assert bool(t[3]) is bool(j[3]) is False
+    head = np.ones(len(lengths), bool)
+    head[1:] = (t[0][1:] != t[0][:-1]) | (t[1][1:] != t[1][:-1]).any(axis=1)
+    seg = np.cumsum(head) - 1
+    for g in range(seg[-1] + 1):
+        assert sorted(t[2][seg == g]) == sorted(j[2][seg == g])
+
+
+def _hash_rows(seed):
+    rng = np.random.default_rng(seed)
+    seqs = _rand_seqs(rng, 20, 97, 128)
+    seqs += seqs[::2]
+    return seqs, *_pack(seqs, 8)
+
+
+def test_hash_collision_retries_to_exact(monkeypatch):
+    # A hash family that collides for the FIRST seed only: the retry must
+    # draw the next one and the count come out exact, in the order of
+    # JAX's table under the same patch.
+    import jax
+
+    real, jreal = tdev._row_hash, jdev._row_hash
+    seeds = []
+
+    def first_seed_collides(words, lengths, seed):
+        seeds.append(seed)
+        keys = real(words, lengths, seed)
+        return torch.zeros_like(keys) if seed == 0 else keys
+
+    def jax_first_seed_collides(words, lengths, seed):
+        h1, h2 = jreal(words, lengths, seed)
+        bad = seed == 0
+        return (jnp.where(bad, jnp.zeros_like(h1), h1),
+                jnp.where(bad, jnp.zeros_like(h2), h2))
+
+    monkeypatch.setattr(tdev, "_row_hash", first_seed_collides)
+    monkeypatch.setattr(jdev, "_row_hash", jax_first_seed_collides)
+    seqs, words, lengths = _hash_rows(40)
+    ones = np.ones(len(seqs), np.int32)
+    *_, collision = tdev._sort_rows_hash(
+        from_numpy_u32(words), torch.from_numpy(lengths),
+        torch.from_numpy(ones))
+    assert not bool(collision) and seeds == [0, 1]  # the retry recovered
+    seeds.clear()
+    with jax.disable_jit():
+        j, t = _both(words, lengths)
+    assert seeds == [0, 1]
+    _assert_exact(j, t)
+    assert dict(zip(_decoded(t), t[2][:int(t[3])].tolist())) == \
+        dict(collections.Counter(seqs))
+
+
+def test_hash_exhaustion_poisons_loudly(monkeypatch):
+    # A degenerate hash that collides for EVERY seed (the adversarial
+    # worst case) must never yield a silently mis-grouped table: the
+    # counts come back poisoned and materialization raises.
+    import jax
+
+    seeds = []
+
+    def degenerate(words, lengths, seed):
+        seeds.append(seed)
+        return torch.zeros(words.shape[0], dtype=torch.int64)
+
+    def jax_degenerate(words, lengths, seed):
+        n = lengths.shape[0]
+        return jnp.zeros(n, jnp.uint32), jnp.zeros(n, jnp.uint32)
+
+    monkeypatch.setattr(tdev, "_row_hash", degenerate)
+    monkeypatch.setattr(jdev, "_row_hash", jax_degenerate)
+    seqs, words, lengths = _hash_rows(41)
+    ones = np.ones(len(seqs), np.int32)
+    *_, collision = tdev._sort_rows_hash(
+        from_numpy_u32(words), torch.from_numpy(lengths),
+        torch.from_numpy(ones))
+    assert bool(collision)  # every family exhausted
+    assert seeds == list(range(tdev._HASH_MAX_TRIES))
+    with jax.disable_jit():
+        j, t = _both(words, lengths)
+    _assert_exact(j, t)
+    n = int(t[3])
+    assert n > 0 and (t[2][:n] == -1).all() and (t[2][n:] == 0).all()
+    with pytest.raises(OverflowError):
+        tdev.counts_to_host(torch.from_numpy(t[0].view(np.int32)),
+                            *(torch.from_numpy(x) for x in t[1:3]), n)
+
+
+#: Kernel D's collision cases, as chip_smoke holds the kernel to them.
+COLLISION_CASES = {c[0]: c[1:] for c in collision_cases(TILE)}
+
+
+@pytest.mark.parametrize("case", sorted(COLLISION_CASES))
+def test_collision_word_matches_jax(case, monkeypatch):
+    """Kernel D's plain version flags exactly the pairs that JAX's
+    _sort_rows_hash calls a collision, given the same keys (JAX's
+    _row_hash patched to return them); the table is D's without keys."""
+    import jax
+
+    words, lengths, weights, keys, want = COLLISION_CASES[case]
+    n = len(lengths)
+    args = (from_numpy_u32(words), torch.from_numpy(lengths),
+            torch.from_numpy(weights), torch.arange(n))
+    got = tdev.group_count_plain(*args, n, torch.from_numpy(keys))
+    assert got[4].dtype == torch.int64 and int(got[4]) == want
+    for g, w in zip(got[:4], tdev.group_count_plain(*args, n)):
+        assert torch.equal(g, w)
+    h1 = ((keys >> 32).astype(np.uint32) ^ np.uint32(0x80000000))
+    h2 = (keys & 0xFFFFFFFF).astype(np.uint32)
+    monkeypatch.setattr(jdev, "_row_hash",
+                        lambda w, l, s: (jnp.asarray(h1), jnp.asarray(h2)))
+    with jax.disable_jit():
+        *_, collision = jdev._sort_rows_hash(
+            jnp.asarray(words), jnp.asarray(lengths), jnp.asarray(weights))
+    assert bool(collision) is bool(want)
+
+
+def test_kernels_i_and_d_with_keys_match_plain_on_card(cuda):
+    rng = np.random.default_rng(13)
+    for lanes, n in ((7, 10_001), (8, 20_000), (10, 20_000), (64, 20_000)):
+        words, lengths = _wide_rows(lanes, lanes, n=n, keys=300)
+        words = from_numpy_u32(words).to(cuda)
+        lengths = torch.from_numpy(lengths).to(cuda)
+        # The same rows 4 bytes past a 16-byte boundary.
+        off = torch.empty(n * lanes + 1, dtype=torch.int32,
+                          device=cuda)[1:].view(n, lanes)
+        off.copy_(words)
+        for view in (words, off):
+            for seed in (0, 7):
+                before = tdev._row_hash.launches
+                got = tdev._row_hash(view, lengths, seed)
+                assert tdev._row_hash.launches == before + 1
+                assert torch.equal(got,
+                                   tdev._row_hash_plain(view, lengths, seed))
+                assert (got[lengths == PAD] == PAD_KEY).all()
+        weights = torch.from_numpy(rng.integers(1, 5, size=n)
+                                   .astype(np.int32)).to(cuda)
+        s_hash, perm = tdev._hash_order(words, lengths, 0)
+        for g, w in zip(
+                tdev.group_count(words, lengths, weights, perm, n, s_hash),
+                tdev.group_count_plain(words, lengths, weights, perm, n,
+                                       s_hash)):
+            assert torch.equal(g, w)
+    for words, lengths, weights, keys, want in COLLISION_CASES.values():
+        args = [from_numpy_u32(words).to(cuda),
+                torch.from_numpy(lengths).to(cuda),
+                torch.from_numpy(weights).to(cuda),
+                torch.arange(len(lengths), device=cuda)]
+        got = tdev.group_count(*args, len(lengths),
+                               torch.from_numpy(keys).to(cuda))
+        assert int(got[4]) == want
+        for g, w in zip(got, tdev.group_count_plain(
+                *args, len(lengths), torch.from_numpy(keys).to(cuda))):
+            assert torch.equal(g, w)

@@ -1,13 +1,13 @@
 """shortseq_torch's CountTable against shortseq_tpu's on the same FASTQ,
 for the host and the device engine (the port's device engine on
-device="cpu": torch.sort + kernel D's plain version).  Mirrors
-tests/test_count_table.py.
+device="cpu": torch.sort, the row hash and kernel D's plain version).
+Mirrors tests/test_count_table.py.
 
 Two files: "narrow" holds reads of at most 96 nt (width buckets of 2 and
-6 lanes), where both device engines build identical tables, so even the
-members of a tie at the most_common(n) boundary must agree; "mixed" adds
-97-300 nt reads, whose JAX bucket is in hash order, so there the entries
-above the boundary count must agree."""
+6 lanes, sorted by key in both packages); "mixed" adds 97-300 nt reads,
+whose 64-lane bucket both packages order by the row hash.  On both, the
+tables are identical, so most_common(n) agrees down to the members of a
+tie at the boundary count, and to_counter() in its insertion order."""
 
 import collections
 
@@ -47,6 +47,12 @@ def files(tmp_path_factory):
         # Skewed picks: many ties at small counts, a few large counts.
         pick = np.minimum(rng.zipf(1.6, size=700) - 1, len(pool) - 1)
         reads = [pool[i] for i in pick]
+        if name == "mixed":
+            # 60 more 97-300 nt reads, 1 to 3 times each: ties at small
+            # counts inside the 64-lane bucket, whose order is the hash's.
+            extra = np.random.default_rng(0xF00D)
+            reads += [r for r in _pool(extra, 60, 97, 300)
+                      for _ in range(int(extra.integers(1, 4)))]
         out[name] = (_write_fastq(d / f"{name}.fastq", reads), reads)
     return out
 
@@ -58,7 +64,7 @@ def tables(request, files):
     path, reads = files[name]
     got = st.read_and_count_fastq_table(path, engine=engine, device="cpu")
     want = sq.read_and_count_fastq_table(path, engine=engine)
-    return got, want, collections.Counter(reads), name == "narrow"
+    return got, want, collections.Counter(reads)
 
 
 def _pairs(items):
@@ -66,34 +72,40 @@ def _pairs(items):
 
 
 def test_len_and_total(tables):
-    got, want, expect, _ = tables
+    got, want, expect = tables
     assert len(got) == len(want) == len(expect)
     assert got.total() == want.total() == sum(expect.values())
 
 
 def test_most_common_top_n(tables):
-    got, want, expect, narrow = tables
-    for n in (1, 3, 5, 20):
+    got, want, expect = tables
+    counts = list(expect.values())
+    # Besides fixed n, each n that cuts a tie (one slot for keys that
+    # share a count).
+    cut = [sum(v > c for v in counts) + 1 for c in sorted(set(counts))
+           if counts.count(c) > 1]
+    wide_ties = False
+    for n in (1, 3, 5, 20, *cut):
         g, w = _pairs(got.most_common(n)), _pairs(want.most_common(n))
-        assert [c for _, c in g] == [c for _, c in w]
-        if narrow:
-            assert g == w  # same tie members, same order
-        else:
-            edge = w[-1][1]
-            assert [kv for kv in g if kv[1] > edge] == \
-                [kv for kv in w if kv[1] > edge]
+        assert g == w  # same tie members, same order
         for k, c in g:
             assert expect[k] == c
+        if n in cut:
+            wide_ties |= any(len(k) > 96 for k, v in expect.items()
+                             if v == w[-1][1])
+    assert cut
+    # On "mixed", a tie that is cut holds a read of the 64-lane bucket.
+    assert wide_ties or max(map(len, expect)) <= 96
 
 
 def test_most_common_full(tables):
-    got, want, expect, _ = tables
+    got, want, expect = tables
     assert _pairs(got.most_common()) == _pairs(want.most_common())
     assert dict(_pairs(got.most_common())) == dict(expect)
 
 
 def test_lookups(tables):
-    got, want, expect, _ = tables
+    got, want, expect = tables
     for seq in list(expect)[:25]:
         assert seq in got
         assert got[seq] == want[seq] == expect[seq]
@@ -112,21 +124,20 @@ def test_lookups(tables):
 
 
 def test_values(tables):
-    got, want, expect, _ = tables
+    got, want, expect = tables
     assert sorted(got.values().tolist()) == sorted(want.values().tolist()) \
         == sorted(expect.values())
     assert got.values().dtype == np.int64
 
 
 def test_to_counter(tables):
-    got, want, expect, narrow = tables
+    got, want, expect = tables
     g, w = got.to_counter(), want.to_counter()
     assert isinstance(g, st.ShortSeqCounter)
     assert {str(k): v for k, v in g.items()} == dict(expect)
-    if narrow:
-        # Same insertion order, so the CLI's stable sort by count prints
-        # the same lines.
-        assert _pairs(g.items()) == _pairs(w.items())
+    # Same insertion order, so the CLI's stable sort by count prints the
+    # same lines.
+    assert _pairs(g.items()) == _pairs(w.items())
 
 
 def _poisoned(kind):

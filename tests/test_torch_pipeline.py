@@ -6,9 +6,8 @@ run resumes recounting only the missing shards.  Mirrors
 tests/test_pipeline_checkpoint.py and tests/test_crash_resume.py; the
 port runs its plain versions (device="cpu").
 
-Tables of reads up to 96 nt are compared array for array (both packages
-order them by key); wider tables as row-sorted arrays, because the JAX
-package orders its 64-lane bucket by a hash."""
+Tables are compared array for array at every width: both packages order
+reads up to 96 nt by key and the 64-lane bucket by the row hash."""
 
 import collections
 import json
@@ -65,16 +64,8 @@ def _host(table, mod):
     return np.asarray(w, np.uint32), np.asarray(l), np.asarray(c)
 
 
-def _same(got, want, ordered):
-    """Equal live tables: array for array, or row-sorted."""
-    if not ordered:
-        def key(t):
-            w, l, c = t
-            o = np.lexsort([w[:, j] for j in range(w.shape[1] - 1, -1, -1)]
-                           + [l])
-            return w[o], l[o], c[o]
-
-        got, want = key(got), key(want)
+def _same(got, want):
+    """Equal live tables, array for array."""
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
@@ -86,7 +77,7 @@ def test_sharded_count_matches_jax(request, files, shards):
     got = tpl.count_fastq_sharded(path, n_shards=shards, device="cpu")
     want = jpl.count_fastq_sharded(path, n_shards=shards)
     assert _as_dict(got) == dict(collections.Counter(reads))
-    _same(_host(got, tpl), _host(want, jpl), files == "narrow")
+    _same(_host(got, tpl), _host(want, jpl))
 
 
 @pytest.mark.parametrize("files", ["narrow", "mixed"])
@@ -97,7 +88,7 @@ def test_two_hosts_then_merged_matches_jax(request, files):
     want = [jpl.count_fastq_sharded(path, n_shards=4, host=h, n_hosts=2)
             for h in range(2)]
     for g, w in zip(got, want):
-        _same(_host(g, tpl), _host(w, jpl), files == "narrow")
+        _same(_host(g, tpl), _host(w, jpl))
     merged = tck.merge_host_tuples([tpl._table_to_host(t) for t in got],
                                    device="cpu")
     assert _as_dict(merged) == dict(collections.Counter(reads))
@@ -111,7 +102,7 @@ def test_batch_chunking_matches_jax(tmp_path):
     want = jpl.count_fastq_sharded(
         path, config=JaxConfig(batch_size=64, min_batch_pad=64))
     assert _as_dict(got) == dict(collections.Counter(reads))
-    _same(_host(got, tpl), _host(want, jpl), True)
+    _same(_host(got, tpl), _host(want, jpl))
 
 
 def test_packed_buckets_batch_size_bounds_rows(narrow):
@@ -177,7 +168,7 @@ def test_resume_across_packages(narrow, tmp_path, writer):
         got = tpl.count_fastq_sharded(path, n_shards=4, device="cpu")
     assert tck.completed_shards(ck, 0) == {0, 1, 2, 3}
     assert _as_dict(got) == dict(collections.Counter(reads))
-    _same(_host(got, tpl), _host(want, jpl), True)
+    _same(_host(got, tpl), _host(want, jpl))
 
 
 def test_partial_resume_recounts_only_missing(narrow, tmp_path,
@@ -256,7 +247,7 @@ def test_tables_roundtrip_and_merge(tmp_path):
     merged = tck.merge_tables(paths, device="cpu")
     want = collections.Counter(seqs_a) + collections.Counter(seqs_b)
     assert _as_dict(merged) == dict(want)
-    _same(_host(merged, tpl), _host(jck.merge_tables(paths), jpl), True)
+    _same(_host(merged, tpl), _host(jck.merge_tables(paths), jpl))
 
 
 def test_distributed_entry_single_process(mixed):
@@ -275,8 +266,8 @@ def test_distributed_entry_single_process(mixed):
     assert lazy.total() == want.total() == len(reads)
     assert [(str(k), c) for k, c in lazy.most_common()] == \
         [(str(k), c) for k, c in want.most_common()]
-    assert sorted(tpl.table_to_host_rows(table)) == \
-        sorted(jpl.table_to_host_rows(jpl.count_fastq_sharded(path)))
+    assert tpl.table_to_host_rows(table) == \
+        jpl.table_to_host_rows(jpl.count_fastq_sharded(path))
 
 
 def test_entry_points_default_to_the_card(narrow, tmp_path):

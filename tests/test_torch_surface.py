@@ -31,12 +31,6 @@ EXEMPT = {
     ("ops/bitpack.py", "_pack_folded_raw"):
         "the folded one-dot pack body; pack_folded runs kernel A on the "
         "unfolded view",
-    ("count/device.py", "_sort_rows_hash"):
-        "unique_count's hash path, for rows too wide for one lax.sort; the "
-        "port's radix sort groups rows of any width exactly, and the "
-        "tables are identical",
-    ("count/device.py", "_row_hash"):
-        "the hash of unique_count's hash path (see _sort_rows_hash)",
     ("dist/mesh.py", "data_mesh.devices"):
         "a list of jax devices; the port's mesh is a torch.distributed "
         "group (data_mesh(group=, device=))",
