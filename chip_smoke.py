@@ -5,7 +5,8 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 
 Phases, one line each; any failure raises and exits nonzero:
   device     a CUDA card is present; its name and power limit (nvidia-smi)
-  build      kernels A to I and K10 (nvcc, sm_90a, one process per source),
+  build      kernels A to I, K10 and S (nvcc, sm_90a, one process per
+             source),
              the host library and the object extension (g++) from this
              checkout's sources, all started together, with the seconds
              each took, and the object backend
@@ -52,7 +53,21 @@ Phases, one line each; any failure raises and exits nonzero:
              lex path and torch.unique, a forced collision (seed 0
              colliding: the CPU's table; every seed: OverflowError), and
              unique_count on the card equal to the CPU's at [2M, 64] and
-             [100003, 7]; kernel A's pack-only mode at [2M, 40]
+             [100003, 7]; kernel S (kernel_s, unique_count's row sort:
+             histograms, then one launch a digit) exact against its plain
+             version on 20 edge cases (sort_edge_cases: N = 1, a tile
+             +- 1, every key equal, all PAD, lengths 0 and 1024 beside
+             PAD, W = 1, 5, 6, 7, lanes with bit 31 set, heavy
+             duplicates, live lengths above 2046) and at the main path's
+             shapes (file 1's words [10M, 2], one of its 8 shards
+             [1.25M, 2], [1M, 6], and on the hash path [2M, 64] Zipf and
+             [2M, 10]), equal to the library path's torch.sort there
+             too, with its event and device times (each launch's at
+             [10M, 2], beside a copy of one pass's bytes), its bound, the
+             pass model, the plain and library times and unique_count
+             with either sort, and unique_count with torch.sort stubbed
+             to raise equal to the CPU's at every one of those shapes;
+             kernel A's pack-only mode at [2M, 40]
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
              words), E at [2M, 10], F (kernel_f) static (8, 100) (one
              launch a call) and ragged at [2M, 10] with its wrapper's host
@@ -136,17 +151,18 @@ Phases, one line each; any failure raises and exits nonzero:
              C launched) equal to device="cpu"; kernel H at the row bands
              of 2, 4 and 8 ranks (UMI_BANDS), each exact against the
              whole-matrix call, with event and device times beside its
-             popcount bound; A, E, G and unique_count (D, and I at 8
+             popcount bound; A, E, G and unique_count (D and S, and I at 8
              lanes) under torch.profiler, each launch inside its ssq.*
              range, and A's and G's wrapper
              host time with and without the range; count's file 3 counted
              as a fresh process's first call, 3 times with the CUDA warmup
              thread and 3 without, in turns
-  counters   kernels A to I and K10 all launched while phases umi_scale,
+  counters   kernels A to I, K10 and S all launched while phases umi_scale,
              umi_cli, count, batch, folded, sharded and umi_mesh drove the
              main path (counts reset just before each run), H in umi_scale,
              umi_cli and umi_mesh, B + C in the overflow tier of umi_scale
-             and umi_mesh, D during count, I in count and batch, A in
+             and umi_mesh, D during count, I in count and batch, S in
+             count, batch and sharded, A in
              count_matrix_device, A's pack-only mode, E, F and G in batch,
              A 5 times and its pack-only mode 3 times in folded,
              K10 in sharded, and the pairwise choice in batch; all three
@@ -178,6 +194,7 @@ SOURCE_D = "shortseq_torch/csrc/count.cu"
 SOURCE_BATCH = "shortseq_torch/csrc/batch.cu"
 SOURCE_UMI = "shortseq_torch/csrc/umi.cu"
 SOURCE_DIST = "shortseq_torch/csrc/dist.cu"
+SOURCE_SORT = "shortseq_torch/csrc/sort.cu"
 
 # The least time a kernel could take (bound_ms): the larger of its bytes
 # (each input read once, each output written once) at the H100 SXM's HBM
@@ -596,6 +613,7 @@ def kernel_checks(torch, results, lines):
 
     results["unique_count"] = kernel_d(torch, timer, rng, lines)
     results["row_hash"] = kernel_i(torch, timer, rng, lines)
+    results["row_sort"] = kernel_s(torch, timer, rng, lines)
     results.update(batch_kernels(torch, timer, rng, lines))
 
 
@@ -706,7 +724,7 @@ def umi_band(torch, rng):
     mat[:, :12] = umis
     lens = np.full(u_pad, 12, np.int32)
     words, ok = bitpack.pack_and_validate_rows(mat.view(np.uint32), lens,
-                                               "cuda")
+                                               device="cuda")
     assert bool(ok.all())
     lens_d = torch.from_numpy(lens).cuda()
     lens_d[-500:] = -1
@@ -1253,6 +1271,25 @@ def launch_split(torch, fn, tags, runs=3):
                   for k, (ms, seen) in split.items())
 
 
+def launch_sequence(torch, fn, tag):
+    """Device ms of each launch of fn whose kernel name holds `tag`, in
+    the order they ran, from torch.profiler over one call (L2 flushed
+    before it); empty when the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        flush.add_(1)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return [e.device_time_total / 1000 for e in prof.events()
+            if tag in e.name.lower()]
+
+
 def launch_times(torch, fn, tags, runs=3):
     """{tag: (device ms a launch, launches seen)} of fn's launches whose
     kernel names hold each tag (for D: tile, finish, and the fills of its
@@ -1472,17 +1509,13 @@ def kernel_i(torch, timer, rng, lines):
     groups = int(cdev.group_count(words, lengths, weights, perm, n,
                                   s_hash)[3])
 
-    def hash_sorts():
-        by_length = torch.sort(lengths, stable=True).indices
-        return torch.sort(keys[by_length], stable=True)
-
     def unique():
         return torch.unique(torch.cat([lengths[:, None], words], 1), dim=0,
                             return_counts=True)
 
     t = timer([lambda: cdev._row_hash(words, lengths, 0),
                lambda: cdev._row_hash_plain(words, lengths, 0),
-               hash_sorts,
+               lambda: hash_sorts_library(keys, lengths),
                lambda: cdev.group_count(words, lengths, weights, perm, n,
                                         s_hash),
                lambda: cdev.unique_count(words, lengths, weights),
@@ -1563,6 +1596,342 @@ def kernel_i(torch, timer, rng, lines):
     return dict(source=SOURCE_D, replaces="shortseq_tpu/count/device.py:62",
                 max_abs_err=max(errs), ms=t[0], plain_ms=t[1],
                 bound_ms=bnd[0], bound_by=bnd[1], library_ms=None)
+
+
+def sort_rows_library(words, lengths):
+    """unique_count's row sort before kernel S, kept here as S's library
+    yardstick (library_ms); the port never calls it.  The same
+    permutation as sort_rows: one stable torch.sort (CUB's radix sort on
+    the card) per pair of 32-bit key columns fused into an int64 key,
+    least significant pair first, each followed by a gather of the key
+    and of the permutation so far."""
+    import torch
+
+    digits = [lengths] + [words[:, j] for j in range(words.shape[1])]
+    perm = None
+    end = len(digits)
+    while end > 0:
+        lo = digits[end - 1]
+        if end >= 2:
+            hi = digits[end - 2].to(torch.int32) ^ -2**31
+            key = hi.long() * (1 << 32) + (lo.long() & 0xFFFFFFFF)
+            end -= 2
+        else:
+            key = lo.to(torch.int32) ^ -2**31
+            end -= 1
+        if perm is not None:
+            key = key[perm]
+        order = torch.sort(key, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def hash_sorts_library(keys, lengths):
+    """The hash path's sorts before kernel S (S's library yardstick
+    there): a stable torch.sort of the lengths, then of the keys in that
+    order.  Returns (s_hash, perm) as _hash_order does."""
+    import torch
+
+    by_length = torch.sort(lengths, stable=True).indices
+    s_hash, order = torch.sort(keys[by_length], stable=True)
+    return s_hash, by_length[order]
+
+
+def sort_edge_cases(tile):
+    """Kernel S's exactness cases, built from its tile's row count:
+    (name, words uint32 [N, W], lengths int32 [N]).  W <= 6 goes through
+    sort_rows, wider rows through _sort_keys."""
+    import numpy as np
+
+    pad = 2**31 - 1
+    rng = np.random.default_rng(13)
+
+    def rows(n, w, lens=(15, 32), pad_share=0.0):
+        words = rng.integers(0, 2**32, size=(n, w),
+                             dtype=np.uint64).astype(np.uint32)
+        lengths = rng.integers(lens[0], lens[1] + 1, size=n).astype(np.int32)
+        lengths[rng.random(n) < pad_share] = pad
+        return words, lengths
+
+    cases = [("N = 1", *rows(1, 2)), ("N = 1, W = 7", *rows(1, 7))]
+    for n in (tile - 1, tile, tile + 1, 3 * tile + 17):
+        cases.append((f"N = {n} (tile {tile})", *rows(n, 2, pad_share=0.1)))
+    words, lengths = rows(1, 2)
+    n = 3 * tile + 5
+    cases.append(("every key equal (every digit skipped)",
+                  np.repeat(words, n, 0), np.repeat(lengths, n)))
+    cases.append(("every key equal, W = 10",
+                  np.repeat(rows(1, 10)[0], n, 0), np.full(n, 150, np.int32)))
+    words, lengths = rows(2 * tile + 9, 2)
+    cases.append(("all PAD (stale words)", words, np.full_like(lengths, pad)))
+    cases.append(("all PAD, W = 7", rows(2 * tile + 9, 7)[0],
+                  np.full_like(lengths, pad)))
+    words, lengths = rows(2 * tile + 7, 2)
+    lengths = rng.choice(np.array([0, 1024, pad], np.int32), size=len(words))
+    cases.append(("lengths 0 and 1024 beside PAD", words, lengths))
+    for w in (1, 5, 6, 7):
+        cases.append((f"W = {w}, 5% PAD",
+                      *rows(2 * tile + 3, w, (0, 16 * w), 0.05)))
+    words, lengths = rows(2 * tile + 11, 2)
+    top = rng.random(words.shape) < 0.5
+    words = np.where(top, words | 0x80000000, words & 0x7FFFFFFF)
+    cases.append(("lanes with bit 31 set or clear", words.astype(np.uint32),
+                  lengths))
+    for w in (2, 10):
+        pool, pool_len = rows(5, w, (16, 17))
+        pick = rng.integers(0, 5, size=3 * tile + 11)
+        cases.append((f"heavy duplicates, 5 keys, W = {w}", pool[pick],
+                      pool_len[pick]))
+    for w in (2, 8):
+        cases.append((f"live lengths up to 5000 (the full-width length), "
+                      f"W = {w}", *rows(2 * tile + 13, w, (0, 5000), 0.1)))
+    return cases
+
+
+def file1_words(torch, rng, n):
+    """n rows of count's file 1 on the card: reads of 15-32 nt as 2
+    lanes, every bit past a read's 2 bits a nucleotide zero.  Returns
+    (words [n, 2], lengths [n])."""
+    import numpy as np
+
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    lengths = rng.integers(15, 33, size=n).astype(np.int32)
+    words = rng.integers(0, 2**32, size=(n, 2), dtype=np.uint64)
+    bits = 2 * lengths.astype(np.uint64)
+    one = np.uint64(1)
+    words[:, 0] &= (one << np.minimum(bits, 32)) - one
+    words[:, 1] &= (one << np.maximum(bits, 32) - np.uint64(32)) - one
+    return (from_numpy_u32(words.astype(np.uint32)).cuda(),
+            torch.from_numpy(lengths).cuda())
+
+
+def s_exact(torch, cdev, name, words, lengths):
+    """Kernel S against its plain version on one input: the histograms
+    and the permutation (W <= 6: sort_rows), or the length order, the
+    histograms of the lengths and keys, the permutation and the sorted
+    keys (wider rows: _sort_keys of kernel I's seed-0 keys as the first
+    hash family and as a later one).  Returns (max abs
+    err, the pass model's bytes a row: each digit pass reads and writes a
+    key, 8 bytes for a lane pair or the hash key, else 4, and a 4-byte
+    index)."""
+    n, w = words.shape
+    if w <= cdev._LEX_SORT_MAX_LANES:
+        hist, host = cdev._sort_hist(words, lengths, None, n)
+        exact(f"S histograms, {name}", [hist],
+              [cdev._sort_hist_plain(words, lengths, None)])
+        plan = cdev._sort_plan(host, w, cdev._key_path_columns(w))
+        return exact(f"S, {name}", [cdev.sort_rows(words, lengths)],
+                     [cdev.sort_rows_plain(words, lengths)]), pass_bytes(
+                         cdev, plan)
+    keys = cdev._row_hash(words, lengths, 0)
+    hist, host = cdev._sort_hist(None, lengths, keys, n)
+    exact(f"S histograms of lengths and keys, {name}", [hist],
+          [cdev._sort_hist_plain(None, lengths, keys)])
+    model = pass_bytes(cdev, cdev._sort_plan(host, 0, [cdev._LEN_MAPPED])) \
+        + pass_bytes(cdev, cdev._sort_plan(host, 0, [cdev._HASH_KEY]))
+    # The first hash family (lengths sorted with the keys), then a later
+    # one (from the first's length order).
+    s_hash, perm, by = cdev._sort_keys(keys, lengths)
+    by_plain = cdev._length_order_plain(lengths)
+    if (by is None) != (by_plain is None):
+        raise AssertionError(f"S, {name}: length order {by} against "
+                             f"{by_plain}")
+    if by is not None:
+        exact(f"S length order, {name}", [by.long()], [by_plain])
+    exact(f"S, {name}, from the length order",
+          list(cdev._sort_keys(keys, None, by)[:2]),
+          list(cdev._sort_keys_plain(keys, None, by_plain)[:2]))
+    return exact(f"S, {name}", [s_hash, perm],
+                 list(cdev._sort_keys_plain(keys, lengths)[:2])), model
+
+
+def pass_bytes(cdev, plan):
+    """The pass model's bytes a row of S's plan."""
+    return sum(2 * ((8 if col >= cdev._PAIR or col == cdev._HASH_KEY else 4)
+                    + 4) for col, _ in plan.tolist())
+
+
+def no_library_sort(torch):
+    """A context in which torch.sort and torch.argsort (functions and
+    methods) raise: unique_count on the card must not reach them."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def stubbed():
+        def refuse(*args, **kwargs):
+            raise AssertionError("torch.sort called on unique_count's path")
+
+        names = ("sort", "argsort")
+        funcs = {k: getattr(torch, k) for k in names}
+        methods = {k: torch.Tensor.__dict__.get(k) for k in names}
+        for k in names:
+            setattr(torch, k, refuse)
+            setattr(torch.Tensor, k, refuse)
+        try:
+            yield
+        finally:
+            for k in names:
+                setattr(torch, k, funcs[k])
+                if methods[k] is None:
+                    delattr(torch.Tensor, k)
+                else:
+                    setattr(torch.Tensor, k, methods[k])
+
+    return stubbed()
+
+
+def kernel_s(torch, timer, rng, lines):
+    """Kernel S (unique_count's row sort) against its plain version on
+    the card:
+      - the histograms and the permutation (and on the hash path the
+        length order and the sorted keys) exact on sort_edge_cases;
+      - at the main path's shapes: file 1's words [10M,2] (the JSON line),
+        one of its 8 shards [1.25M,2], [1M,6] from a 300,000-row pool,
+        and on the hash path file 2's bucket [2M,64] Zipf and [2M,10]
+        (150-nt rows): exact against the plain version and against the
+        library path (a stable sort's permutation is unique), the plan's
+        passes, S's CUDA-event and device times (histogram and passes a
+        launch) beside its bound and the pass model, the plain version's
+        and the library path's times, and unique_count with S and with
+        the library path's sort, in turns;
+      - unique_count with torch.sort and torch.argsort stubbed to raise,
+        at every shape, equal to unique_count on the CPU array for array
+        (after every timing: the CPU work slows later launches).
+    Returns the JSON line's row_sort entry ([10M,2])."""
+    import numpy as np
+
+    from shortseq_torch.count import device as cdev
+    from shortseq_torch.ops.lanes import from_numpy_u32
+
+    errs = []
+    cases = sort_edge_cases(cdev.SORT_TILE_ROWS)
+    for name, words, lens in cases:
+        errs.append(s_exact(torch, cdev, name, from_numpy_u32(words).cuda(),
+                            torch.from_numpy(lens).cuda())[0])
+    torch.cuda.synchronize()
+    lines.append(f"S: {len(cases)} edge cases exact (tile "
+                 f"{cdev.SORT_TILE_ROWS} rows), histograms included")
+
+    w1, l1 = file1_words(torch, rng, 10_000_000)
+    pool = card_lanes(torch, rng, 300_000, 6)
+    pool_len = torch.from_numpy(rng.integers(33, 97, size=300_000)
+                                .astype(np.int32)).cuda()
+    pick = torch.from_numpy(rng.integers(0, 300_000, size=1_000_000)).cuda()
+    w6, l6 = pool[pick].contiguous(), pool_len[pick]
+    del pool, pool_len, pick
+    w64, l64, _ = file2_words(torch, rng)
+    w10 = card_lanes(torch, rng, 2_000_000, 10)
+    w10[:, 9] &= (1 << 2 * (150 - 144)) - 1
+    l10 = torch.full((2_000_000,), 150, dtype=torch.int32, device="cuda")
+    shard = 1_250_000
+    shapes = [("[10M,2] file 1", w1, l1),
+              ("[1.25M,2] one of file 1's 8 shards", w1[:shard], l1[:shard]),
+              ("[1M,6]", w6, l6), ("[2M,64] Zipf, hash path", w64, l64),
+              ("[2M,10], hash path", w10, l10)]
+    main = None
+    for name, words, lengths in shapes:
+        n, w = words.shape
+        weights = torch.ones(n, dtype=torch.int32, device="cuda")
+        err, row_bytes = s_exact(torch, cdev, name, words, lengths)
+        errs.append(err)
+        if w <= cdev._LEX_SORT_MAX_LANES:
+            def s_fn():
+                return cdev.sort_rows(words, lengths)
+
+            def plain():
+                return cdev.sort_rows_plain(words, lengths)
+
+            def library():
+                return sort_rows_library(words, lengths)
+
+            exact(f"S, {name}, against the library path", [s_fn()],
+                  [library()])
+            bnd = bound([words, lengths], [s_fn()])
+        else:
+            keys = cdev._row_hash(words, lengths, 0)
+
+            def s_fn():
+                return cdev._sort_keys(keys, lengths)[:2]
+
+            def plain():
+                return cdev._sort_keys_plain(keys, lengths)[:2]
+
+            def library():
+                return hash_sorts_library(keys, lengths)
+
+            exact(f"S, {name}, against the library path", list(s_fn()),
+                  list(library()))
+            bnd = bound([keys, lengths], list(s_fn()))
+
+        def unique_library():
+            # unique_count's steps with the library path's sort: on the
+            # hash path D takes the keys and the collision word is read.
+            if w <= cdev._LEX_SORT_MAX_LANES:
+                return cdev.group_count(words, lengths, weights,
+                                        sort_rows_library(words, lengths), n)
+            s_hash, perm = hash_sorts_library(
+                cdev._row_hash(words, lengths, 0), lengths)
+            table = cdev.group_count(words, lengths, weights, perm, n, s_hash)
+            if int(table[4]):
+                raise AssertionError(f"{name}: seed 0 collides")
+            return table
+
+        t = timer([s_fn, library, plain,
+                   lambda: cdev.unique_count(words, lengths, weights),
+                   unique_library], runs=5)
+        split = launch_split(torch, s_fn, ("sort_hist", "sort_pass"))
+        model = row_bytes * n / HBM_BYTES_PER_S * 1e3
+        passes = len(launch_sequence(torch, s_fn, "sort_pass"))
+        lines.append(
+            f"S {name}: {t[0]:.4f} ms, {passes} digit passes; library path "
+            f"{t[1]:.4f} ms; plain {t[2]:.4f} ms; {split}; {bound_text(bnd)}"
+            f", pass model {model:.4f} ms ({row_bytes} B a row); "
+            f"unique_count with S {t[3]:.4f} ms, with the library path's "
+            f"sort {t[4]:.4f} ms")
+        if main is None:
+            main = (t, bnd)
+            seq = launch_sequence(torch, s_fn, "sort_")
+            # A copy of one carrying pass's bytes (a key and an index a
+            # row in, the same out): the rate a pass could reach.
+            src = torch.empty(2 * n, dtype=torch.int32, device="cuda")
+            dst = torch.empty_like(src)
+            copy_ms = timer([lambda: dst.copy_(src)])[0]
+            del src, dst
+            lines.append(
+                f"S {name}, device ms of each launch in order (histograms, "
+                f"then the passes): "
+                + (", ".join(f"{ms:.4f}" for ms in seq) or "not measured")
+                + f"; a copy of one carrying pass's bytes ({16 * n >> 20} "
+                f"MiB moved) {copy_ms:.4f} ms")
+        del weights
+
+    # The main path without the library sort, then the CPU's tables.
+    before = cdev.sort_rows.launches
+    cards = []
+    with no_library_sort(torch):
+        for name, words, lengths in shapes:
+            weights = torch.ones(len(lengths), dtype=torch.int32,
+                                 device="cuda")
+            cards.append([x.cpu() for x in
+                          cdev.unique_count(words, lengths, weights)])
+    if cdev.sort_rows.launches == before:
+        raise AssertionError("unique_count did not launch kernel S")
+    t0 = time.perf_counter()
+    for (name, words, lengths), card in zip(shapes, cards):
+        ones = torch.ones(len(lengths), dtype=torch.int32)
+        exact(f"unique_count {name}, card (no torch.sort) vs CPU", card,
+              cdev.unique_count(words.cpu(), lengths.cpu(), ones))
+    lines.append(f"unique_count with torch.sort and torch.argsort stubbed "
+                 f"to raise: S launched {cdev.sort_rows.launches - before} "
+                 f"times, each table equal to the CPU's array for array at "
+                 + ", ".join(name for name, *_ in shapes)
+                 + f" ({time.perf_counter() - t0:.1f} s of CPU)")
+    t, bnd = main
+    return dict(source=SOURCE_SORT,
+                replaces="shortseq_tpu/count/device.py:57",
+                max_abs_err=max(errs), ms=t[0], plain_ms=t[2],
+                bound_ms=bnd[0], bound_by=bnd[1], library_ms=t[1])
 
 
 def batch_kernels(torch, timer, rng, lines, extras=True):
@@ -2192,7 +2561,7 @@ def count_walls(other=None, reps=5):
 
 
 class MainPath:
-    """Launch counts of kernels A to I and K10 over the main path's runs
+    """Launch counts of kernels A to I, K10 and S over the main path's runs
     only: each run starts every count at 0 and adds what it launched, in
     all (`launches`), per phase (`by_phase`) and for the last run
     (`last`); K8's reads' calls in all (`k8_calls`)."""
@@ -2211,6 +2580,7 @@ class MainPath:
                          "neighbor_lists_fused": dedup.neighbor_lists_fused,
                          "unique_count": cdev.group_count,
                          "row_hash": cdev._row_hash,
+                         "row_sort": cdev.sort_rows,
                          "pack_words": bitpack.pack_words_u32,
                          "unpack_ascii": bitpack.unpack_ascii,
                          "trim_words": batch.trim_words_ragged,
@@ -3153,7 +3523,7 @@ def h_bands(torch, lines):
 
 
 def scoped_launches(torch, workdir, lines):
-    """Kernels A, E, G, D and I (unique_count at 2 and 8 lanes) once each
+    """Kernels A, E, G, D, S and I (unique_count at 2 and 8 lanes) once each
     under torch.profiler (CPU and CUDA): every launch of each kernel must
     come from inside its wrapper's ssq.* range, read from the Chrome
     trace (the runtime call of
@@ -3181,6 +3551,8 @@ def scoped_launches(torch, workdir, lines):
              ("ssq.hamming_rows", "hamming_rows_kernel",
               lambda: hamming.hamming_rows(words, words)),
              ("ssq.unique_count", "group_tile_kernel",
+              lambda: unique_count(words, ln, ones)),
+             ("ssq.unique_count", "sort_pass_kernel",
               lambda: unique_count(words, ln, ones)),
              ("ssq.unique_count", "row_hash_kernel",
               lambda: unique_count(x, ln, ones)))
@@ -3530,6 +3902,10 @@ def main() -> int:
                  if main_path.by_phase[p]["row_hash"] == 0]
         if quiet:
             raise AssertionError(f"kernel I never launched in {quiet}")
+        quiet = [p for p in ("count", "batch", "sharded")
+                 if main_path.by_phase[p]["row_sort"] == 0]
+        if quiet:
+            raise AssertionError(f"kernel S never launched in {quiet}")
         umi = {p: main_path.by_phase[p]
                for p in ("umi_scale", "umi_cli", "umi_mesh")}
         quiet = [p for p, n in umi.items() if n["neighbor_lists_fused"] == 0]

@@ -4,7 +4,7 @@ Four slices so far, each end to end on the card:
   * exact FASTQ dedup: `read_and_count_fastq(_table)` with the host or the
     device engine, the lazy `CountTable`, `ShortSeqCounter`, and the
     ShortSeq objects (`pack`, `from_str`, ...); the device engine sorts
-    with torch.sort and groups with kernel D (csrc/count.cu);
+    with kernel S (csrc/sort.cu) and groups with kernel D (csrc/count.cu);
   * its sharded and distributed form (`shortseq_torch.dist`): the
     checkpointed byte-range pipeline `count_fastq_sharded`
     (`config.PipelineConfig`), and the torch.distributed merge

@@ -246,6 +246,13 @@ _CUDA_SIGNATURES = {
     # u_words, u_lengths, counts, sums, scratch, n_out, w, stream
     "ssq_group_finish": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "ssq_group_tile_rows": [],
+    # words (None: no lanes), w, lengths, full, keys, hist, n, stream
+    "ssq_sort_hist": [_P, _I32, _P, _I32, _P, _P, _I64, _P],
+    # plan (host int32 [passes, 2]), passes, words, w, lengths, keys,
+    # idx_in, hist, scratch, key_buf, idx_buf, perm, s_hash, n, stream
+    "ssq_sort_passes": [_P, _I32, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I64, _P],
+    "ssq_sort_tile_rows": [],
     # words, out, total (words), stream
     "ssq_unpack_ascii": [_P, _P, _I64, _P],
     # words, lengths, starts (None: start), new_lengths (None: length),

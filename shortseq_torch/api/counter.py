@@ -8,7 +8,7 @@ below, which read a FASTQ into a lazy CountTable and materialize the
 dict only when asked:
 
 * "host": the threaded native hash count (csrc ssq_host_count).
-* "device": sort-unique-count on `device` (torch.sort + kernel D,
+* "device": sort-unique-count on `device` (kernel S + kernel D,
   count/device.py).  device="cuda" launches the kernels and raises when
   there is no card; device="cpu" runs their plain versions.
 * "auto": "host" when the native library is built, else "device".
@@ -139,7 +139,7 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
 
     Reads are bucketed by width class (<=32, <=96, <=1024 nt - the
     reference's ladder) and each bucket is packed and validated on the
-    device (kernel A) and counted there (torch.sort + kernel D); bucket
+    device (kernel A) and counted there (kernel S + kernel D); bucket
     tables are disjoint by length, so the final dict is their union.
     Raises the reference's error on invalid bases."""
     from ..constants import MAX_VAR_NT, TOO_LONG_MSG, UNSUPPORTED_BASE_MSG
@@ -167,7 +167,7 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
             else np.pad(mat[sel], ((0, 0), (0, width - mat.shape[1])))
         sub_len = lengths[sel].astype(np.int32)
         words, ok = pack_and_validate_rows(rows.view(np.uint32), sub_len,
-                                           device)
+                                           device=device)
         ok = ok.cpu().numpy()
         if not ok.all():
             bad_idx = int(np.argmin(ok))

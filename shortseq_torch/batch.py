@@ -204,7 +204,7 @@ class PackedBatch:
                        lengths_d)
         # pad_valid: _ascii_matrix pads with PAD_BYTE.
         words, ok = pack_and_validate_rows(mat.view(np.uint32), lengths,
-                                           device, pad_valid=True)
+                                           pad_valid=True, device=device)
         ok = ok.cpu().numpy()
         if not ok.all():
             i = int(np.argmin(ok))
@@ -226,7 +226,7 @@ class PackedBatch:
         if pad:
             mat = np.ascontiguousarray(np.pad(mat, ((0, 0), (0, pad))))
         lengths = np.ascontiguousarray(lengths, np.int32)
-        return cls(pack_rows(mat.view(np.uint32), device),
+        return cls(pack_rows(mat.view(np.uint32), device=device),
                    torch.from_numpy(lengths).to(device))
 
     # -- shape ---------------------------------------------------------------
@@ -312,8 +312,8 @@ class PackedBatch:
         return PackedBatch(words, new_len)
 
     def counts(self):
-        """Exact dedup of this batch -> ShortSeqCounter (torch.sort +
-        kernel D on the batch's device, count/device.py)."""
+        """Exact dedup of this batch -> ShortSeqCounter (kernels S and D
+        on the batch's device, count/device.py)."""
         from .api.counter import ShortSeqCounter, table_to_counter
         from .count.device import count_batch
 

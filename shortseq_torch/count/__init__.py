@@ -1,4 +1,4 @@
-"""Exact deduplication on the device: sort-unique-count (torch.sort +
+"""Exact deduplication on the device: sort-unique-count (kernel S +
 kernel D) over packed lane rows, and the lazy CountTable over its results.
 
 The operation is associative: merging count tables is concatenation + one

@@ -3,14 +3,17 @@ shortseq_tpu/count/device.py.
 
 Counting is sort-based grouping, in the JAX package's order:
 
-  1. group equal rows adjacently.  Rows of at most _LEX_SORT_MAX_LANES
-     lanes: sort_rows, a stable LSD sort by (length, lane_0, ...,
-     lane_{W-1}), lanes compared as unsigned, PAD rows last - one
-     torch.sort (CUB radix on the card) per pair of 32-bit key columns,
-     least significant pair first, permuting by gathering the index.
-     Wider rows: _hash_order, a stable sort by (h1, h2, length) of a
-     seeded 64-bit row hash (_row_hash, kernel I in
-     shortseq_torch/csrc/count.cu), PAD rows forced to the largest hash.
+  1. group equal rows adjacently, by kernel S (csrc/sort.cu), a stable
+     LSD radix sort over 8-bit digits that skips every digit holding one
+     value over all rows (_sort_plan).  Rows of at most
+     _LEX_SORT_MAX_LANES lanes: sort_rows, by (length, lane_0, ...,
+     lane_{W-1}), lanes compared as unsigned, PAD rows last.  Wider rows:
+     _sort_keys for each hash family, a stable sort by (h1, h2, length)
+     of a seeded 64-bit row hash (_row_hash, kernel I in
+     shortseq_torch/csrc/count.cu), PAD rows forced to the largest hash;
+     the first family sorts the lengths too, and the rest start from
+     that length order.  sort_rows_plain and _sort_keys_plain are S's
+     plain versions: the same plan, one stable torch.sort a digit.
   2. group_count (kernel D, csrc/count.cu): boundary flags, exact int64
      group sums, one key row per group, n_unique over the live prefix,
      pad normalization and the poison, each sorted row gathered once
@@ -84,34 +87,235 @@ def empty_table(width: int = 1, device="cuda", rows: int = 1):
             torch.zeros((), dtype=torch.int32, device=device))
 
 
+#: Rows per tile of kernel S's digit passes (kTileRows in csrc/sort.cu):
+#: edge-case tests build their sizes from it.
+SORT_TILE_ROWS = 4096
+
+#: Kernel S's key columns besides a lane j (>= 0) and a pair _PAIR + j
+#: (lanes j and j + 1 as one unsigned 64-bit key, lane j the high half):
+#: the length as int32 (bit 31 flipped, so its signed order is the
+#: unsigned one), the length mapped to 11 bits (PAD_LENGTH as 2047, when
+#: every live length is at most 2046), and kernel I's int64 hash key (bit
+#: 63 flipped, so its unsigned order is that of (h1, h2)).
+_PAIR = 1 << 16
+_LEN_FULL, _LEN_MAPPED, _HASH_KEY = -1, -2, -3
+_COLUMN_BYTES = {_LEN_FULL: 4, _LEN_MAPPED: 2, _HASH_KEY: 8}
+_SLOT_AFTER_LANES = {_LEN_FULL: 0, _LEN_MAPPED: 4, _HASH_KEY: 6}
+_MAPPED_PAD = 2047
+_INT64_MIN = -2**63
+
+
+def _digit_slot(col: int, shift: int, w: int) -> int:
+    """Row of a digit in S's histograms (digit_slot in csrc/sort.cu): 4 a
+    lane, then the length's 4, its 2 under the map, the hash key's 8; a
+    pair's low 4 digits are lane j + 1's, its high 4 lane j's."""
+    byte = shift // 8
+    if col >= _PAIR:
+        return 4 * (col - _PAIR) + (4 + byte if byte < 4 else byte - 4)
+    if col >= 0:
+        return 4 * col + byte
+    return 4 * w + _SLOT_AFTER_LANES[col] + byte
+
+
+def _hist_size(w: int) -> int:
+    """int32 words of S's histograms of W lanes: 256 bins a digit, then
+    the flag (a live length above 2046)."""
+    return (4 * w + 14) * 256 + 1
+
+
+def _sort_plan(hist: np.ndarray, w: int, columns) -> np.ndarray:
+    """S's digits, least significant first, as int32 [passes, 2] (column,
+    shift): each digit of `columns` (least significant column first; the
+    length as _LEN_MAPPED unless the flag says a live length exceeds
+    2046, then _LEN_FULL) whose histogram has more than one non-empty
+    bin.  A stable sort by a digit that holds one value is the identity,
+    so leaving it out changes nothing."""
+    varies = np.count_nonzero(hist[:-1].reshape(-1, 256), axis=1) > 1
+    plan = []
+    for col in columns:
+        if col == _LEN_MAPPED and hist[-1]:
+            col = _LEN_FULL
+        nbytes = 8 if col >= _PAIR else _COLUMN_BYTES.get(col, 4)
+        plan += [(col, 8 * byte) for byte in range(nbytes)
+                 if varies[_digit_slot(col, 8 * byte, w)]]
+    return np.array(plan, np.int32).reshape(-1, 2)
+
+
+def _key_column(col: int, words, lengths, keys) -> torch.Tensor:
+    """A column of S's keys as int64 holding the unsigned key (a pair and
+    the hash key as int64 bits: their bytes are the unsigned key's)."""
+    if col >= _PAIR:
+        j = col - _PAIR
+        return (words[:, j].long() << 32) | (words[:, j + 1].long() & _U32)
+    if col >= 0:
+        return words[:, col].long() & _U32
+    if col == _LEN_FULL:
+        return (lengths.long() & _U32) ^ 0x80000000
+    if col == _LEN_MAPPED:
+        return torch.where(lengths == PAD_LENGTH, _MAPPED_PAD,
+                           lengths.long() & _U32)
+    return keys ^ _INT64_MIN
+
+
+def _sort_hist_plain(words, lengths, keys) -> torch.Tensor:
+    """Plain PyTorch version of S's histograms: int32 [_hist_size(W)],
+    each digit's 256 bins (of the columns given; words None: W = 0), then
+    the flag, 1 when a live length exceeds 2046.  The length's digits are
+    those of the mapped length, and with the flag set also those of the
+    int32 length (left zero without it, as the kernel leaves them)."""
+    w = 0 if words is None else words.shape[1]
+    ref = next(t for t in (words, lengths, keys) if t is not None)
+    hist = torch.zeros(_hist_size(w), dtype=torch.int64, device=ref.device)
+    cols = list(range(w))
+    if lengths is not None:
+        big = ((lengths != PAD_LENGTH)
+               & ((lengths.long() & _U32) > 2046)).any()
+        hist[-1] = big.long()
+        cols += [_LEN_MAPPED, _LEN_FULL] if bool(big) else [_LEN_MAPPED]
+    if keys is not None:
+        cols.append(_HASH_KEY)
+    for col in cols:
+        key = _key_column(col, words, lengths, keys)
+        for byte in range(_COLUMN_BYTES.get(col, 4)):
+            slot = _digit_slot(col, 8 * byte, w)
+            hist[slot * 256:(slot + 1) * 256] = torch.bincount(
+                (key >> 8 * byte) & 255, minlength=256)
+    return hist.to(torch.int32)
+
+
+def _digit_sort_plain(plan, words, lengths, keys, order=None):
+    """S's digit passes as tensors: for each (column, shift) of `plan`, a
+    stable torch.sort of that digit of the rows in the order so far.
+    Returns the int64 order (from `order`, else the input order)."""
+    n = (lengths if lengths is not None else keys).shape[0]
+    dev = (lengths if lengths is not None else keys).device
+    order = torch.arange(n, device=dev) if order is None else order.long()
+    for col, shift in plan.tolist():
+        key = _key_column(col, words, lengths, keys)[order]
+        order = order[torch.sort((key >> shift) & 255, stable=True).indices]
+    return order
+
+
+def _key_path_columns(w: int) -> list:
+    """sort_rows' columns, least significant first: the lane pairs
+    (W-2, W-1), (W-4, W-3), ..., then lane 0 alone when W is odd, then the
+    length."""
+    return [_PAIR + j for j in range(w - 2, -1, -2)] \
+        + ([0] if w % 2 else []) + [_LEN_MAPPED]
+
+
+def sort_rows_plain(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of sort_rows: S's plan (the same columns, the
+    same length map, the same skipped digits), one stable torch.sort a
+    digit."""
+    w = words.shape[1]
+    hist = _sort_hist_plain(words, lengths, None).cpu().numpy()
+    plan = _sort_plan(hist, w, _key_path_columns(w))
+    return _digit_sort_plain(plan, words, lengths, None)
+
+
+def _check_sort_operands(words, lengths, keys=None):
+    ref = next(t for t in (words, lengths, keys) if t is not None)
+    dev, n = ref.device, ref.shape[0]
+    if words is not None:
+        _build.check_operand(words, "words", torch.int32, 2, dev)
+    for name, t, dtype in (("lengths", lengths, torch.int32),
+                           ("keys", keys, torch.int64)):
+        if t is not None:
+            _build.check_operand(t, name, dtype, 1, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"{name} has {t.shape[0]} rows, not {n}")
+    if n > _INT32_MAX:
+        raise ValueError(f"{n} rows: kernel S sorts at most 2^31 - 1")
+    return dev, n
+
+
+def _sort_hist(words, lengths, keys, n: int):
+    """Kernel S's histogram launch, copied to the host (one small copy a
+    call: the plan is made there), and when the flag says a live length
+    exceeds 2046 a second launch for the int32 length's digits and a
+    second copy.  Returns (histograms on the card, their host copy)."""
+    w = 0 if words is None else words.shape[1]
+    ref = lengths if keys is None else keys
+    hist = torch.zeros(_hist_size(w), dtype=torch.int32, device=ref.device)
+    lens = None if lengths is None else lengths.data_ptr()
+    _build.launch("ssq_sort_hist", None if words is None else words.data_ptr(),
+                  w, lens, 0, None if keys is None else keys.data_ptr(),
+                  hist.data_ptr(), n)
+    host = hist.cpu().numpy()
+    if lens is not None and host[-1]:
+        _build.launch("ssq_sort_hist", None, w, lens, 1, None,
+                      hist.data_ptr(), n)
+        host = hist.cpu().numpy()
+    return hist, host
+
+
+def _sort_passes(plan, hist, words, lengths, keys, n: int, order=None,
+                 final: bool = True):
+    """Kernel S's digit passes of `plan`, one launch each, from `order`
+    (int32 [N]; None: the input order).  final: returns (perm int64 [N],
+    s_hash int64 [N] or None: the keys in that order when `keys` is
+    given); else the int32 order of the last pass."""
+    dev = hist.device
+    passes = len(plan)
+    tile_rows = _build.cuda_lib().ssq_sort_tile_rows()
+    if tile_rows != SORT_TILE_ROWS:
+        raise RuntimeError(f"kernel S was built with {tile_rows}-row tiles, "
+                           f"SORT_TILE_ROWS is {SORT_TILE_ROWS}")
+    tiles = -(-n // SORT_TILE_ROWS)
+    # Zeroed by the entry point: one tile counter a pass, one look-back
+    # state per (tile, bin) shared by every pass (each tags its states
+    # with its own epoch).
+    scratch = torch.empty(passes + tiles * 256, dtype=torch.int64, device=dev)
+    wide = any(col == _HASH_KEY or col >= _PAIR for col, _ in plan.tolist())
+    key_buf = torch.empty(2 * n * (2 if wide else 1), dtype=torch.int32,
+                          device=dev)
+    idx_buf = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    perm = torch.empty(n, dtype=torch.int64, device=dev) if final else None
+    s_hash = torch.empty(n, dtype=torch.int64, device=dev) \
+        if final and keys is not None else None
+    plan = np.ascontiguousarray(plan, np.int32)
+    _build.launch("ssq_sort_passes", plan.ctypes.data, passes,
+                  None if words is None else words.data_ptr(),
+                  0 if words is None else words.shape[1],
+                  None if lengths is None else lengths.data_ptr(),
+                  None if keys is None else keys.data_ptr(),
+                  None if order is None else order.data_ptr(),
+                  hist.data_ptr(), scratch.data_ptr(), key_buf.data_ptr(),
+                  idx_buf.data_ptr(),
+                  None if perm is None else perm.data_ptr(),
+                  None if s_hash is None else s_hash.data_ptr(), n)
+    if final:
+        return perm, s_hash
+    half = (passes - 1) % 2
+    return idx_buf[half * n:(half + 1) * n]
+
+
 def sort_rows(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Permutation (int64 [N]) that sorts rows by (length, lane_0, ...,
-    lane_{W-1}) with lanes compared as unsigned and ties in input order.
+    lane_{W-1}) with lanes compared as unsigned, lengths as int32, and
+    ties in input order.
 
-    The key digits are 32-bit: the length, then each lane.  Two digits
-    fuse into one int64 key, hi * 2^32 + lo, with hi biased by x ^ -2^31
-    (so its signed order is the unsigned order) and lo zero-extended; each
-    key is one stable torch.sort, least significant pair first, applied to
-    the permutation so far.  Lengths are non-negative (or PAD_LENGTH), so
-    their unsigned order is their signed order."""
-    n, w = words.shape
-    digits = [lengths] + [words[:, j] for j in range(w)]
-    perm = None
-    end = len(digits)
-    while end > 0:
-        lo = digits[end - 1]
-        if end >= 2:
-            hi = digits[end - 2].to(torch.int32) ^ _INT32_MIN
-            key = hi.long() * (1 << 32) + (lo.long() & 0xFFFFFFFF)
-            end -= 2
-        else:
-            key = lo.to(torch.int32) ^ _INT32_MIN
-            end -= 1
-        if perm is not None:
-            key = key[perm]
-        order = torch.sort(key, stable=True).indices
-        perm = order if perm is None else perm[order]
-    return perm
+    Kernel S: a histogram launch, the plan on the host (digits that hold
+    one value left out), then one launch a digit, the last lane pair
+    first, the length last.  A CUDA tensor launches the kernel; a CPU tensor takes
+    the plain version."""
+    if words.device.type == "cpu":
+        return sort_rows_plain(words, lengths)
+    dev, n = _check_sort_operands(words, lengths)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    w = words.shape[1]
+    hist, host = _sort_hist(words, lengths, None, n)
+    plan = _sort_plan(host, w, _key_path_columns(w))
+    sort_rows.launches += 1
+    if len(plan) == 0:
+        return torch.arange(n, dtype=torch.int64, device=dev)
+    return _sort_passes(plan, hist, words, lengths, None, n)[0]
+
+
+# Every call that launches S counts here: sort_rows and _sort_keys.
+sort_rows.launches = 0
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -179,16 +383,73 @@ _ROW_HASH = _row_hash
 _ROW_HASH.launches = 0
 
 
+def _length_order_plain(lengths: torch.Tensor):
+    """The rows' stable order by length (int64), the hash path's first
+    key, or None when every row has one length (the input order already
+    is the length order): the plain version of the length passes of
+    _sort_keys."""
+    hist = _sort_hist_plain(None, lengths, None).cpu().numpy()
+    plan = _sort_plan(hist, 0, [_LEN_MAPPED])
+    if len(plan) == 0:
+        return None
+    return _digit_sort_plain(plan, None, lengths, None)
+
+
+def _sort_keys_plain(keys: torch.Tensor, lengths=None, by_length=None):
+    """Plain PyTorch version of _sort_keys."""
+    if lengths is not None:
+        by_length = _length_order_plain(lengths)
+    hist = _sort_hist_plain(None, None, keys).cpu().numpy()
+    plan = _sort_plan(hist, 0, [_HASH_KEY])
+    perm = _digit_sort_plain(plan, None, None, keys, by_length)
+    return keys[perm], perm, by_length
+
+
+def _sort_keys(keys: torch.Tensor, lengths=None, by_length=None):
+    """(s_hash, perm, by_length): a stable sort of kernel I's int64 keys
+    (signed order, which is the unsigned order of (h1, h2)), the keys in
+    that order, and the length order it started from.  With `lengths`
+    the rows are sorted by (key, length): the length order comes from the
+    same histogram launch and copy, and is returned (int32 on the card;
+    None when every row has one length) for the next hash family, which
+    passes it as `by_length` (None: the input order) and sorts only its
+    keys.  Kernel S on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if keys.device.type == "cpu":
+        return _sort_keys_plain(keys, lengths, by_length)
+    _, n = _check_sort_operands(None, lengths, keys)
+    if by_length is not None:
+        _build.check_operand(by_length, "by_length", torch.int32, 1,
+                             keys.device)
+    hist, host = _sort_hist(None, lengths, keys, n)
+    sort_rows.launches += 1
+    if lengths is not None:
+        plan = _sort_plan(host, 0, [_LEN_MAPPED])
+        by_length = None if len(plan) == 0 else _sort_passes(
+            plan, hist, None, lengths, None, n, final=False)
+    plan = _sort_plan(host, 0, [_HASH_KEY])
+    if len(plan) == 0:
+        perm = torch.arange(n, device=keys.device) if by_length is None \
+            else by_length.long()
+        return keys[perm], perm, by_length
+    perm, s_hash = _sort_passes(plan, hist, None, None, keys, n, by_length)
+    return s_hash, perm, by_length
+
+
+def _hash_order_plain(words, lengths, seed: int, by_length=None):
+    """Plain PyTorch version of _hash_order."""
+    return _sort_keys_plain(_row_hash(words, lengths, seed),
+                            lengths if by_length is None else None,
+                            by_length)[:2]
+
+
 def _hash_order(words, lengths, seed: int, by_length=None):
     """(s_hash, perm): the rows in (h1, h2, length) order under hash
-    family `seed` - a stable torch.sort of the lengths (`by_length`, when
-    the caller has it), then a stable torch.sort of the keys gathered in
-    that order - and the keys in that order."""
-    if by_length is None:
-        by_length = torch.sort(lengths, stable=True).indices
-    s_hash, order = torch.sort(_row_hash(words, lengths, seed)[by_length],
-                               stable=True)
-    return s_hash, by_length[order]
+    family `seed`, and their keys in that order: kernel I's keys through
+    _sort_keys, from the length order `by_length` (an earlier family's),
+    or sorted with the keys when None."""
+    return _sort_keys(_row_hash(words, lengths, seed),
+                      lengths if by_length is None else None, by_length)[:2]
 
 
 def _adjacent_collision(s_words, s_len, s_hash) -> torch.Tensor:
@@ -208,9 +469,11 @@ def _sort_rows_hash(words, lengths, weights):
     Returns (s_lengths, s_words, s_weights, collision 0-d bool).
     unique_count never gathers the sorted rows: D reads them through the
     permutation."""
-    by_length = torch.sort(lengths, stable=True).indices
+    by_length = None
     for seed in range(_HASH_MAX_TRIES):
-        s_hash, perm = _hash_order(words, lengths, seed, by_length)
+        s_hash, perm, by_length = _sort_keys(
+            _row_hash(words, lengths, seed), None if seed else lengths,
+            by_length)
         s_len, s_words = lengths[perm], words[perm]
         collision = _adjacent_collision(s_words, s_len, s_hash)
         if not collision:
@@ -350,9 +613,13 @@ def unique_count(words: torch.Tensor, lengths: torch.Tensor,
     if w <= _LEX_SORT_MAX_LANES:
         perm = sort_rows(words, lengths)
         return group_count(words, lengths, weights, perm, n_out)
-    by_length = torch.sort(lengths, stable=True).indices
+    # The first family sorts the lengths with its keys; the rest start
+    # from that length order and sort only their keys.
+    by_length = None
     for seed in range(_HASH_MAX_TRIES):
-        s_hash, perm = _hash_order(words, lengths, seed, by_length)
+        s_hash, perm, by_length = _sort_keys(
+            _row_hash(words, lengths, seed), None if seed else lengths,
+            by_length)
         *table, collision = group_count(words, lengths, weights, perm, n_out,
                                         s_hash)
         if not collision:

@@ -68,8 +68,8 @@ def pack_validate_padded(rows: np.ndarray, val_lengths: np.ndarray,
                       constant_values=PAD_BYTE)
         val_lengths = np.pad(val_lengths, (0, n_pad - n))
     words, ok = pack_and_validate_rows(
-        np.ascontiguousarray(rows).view(np.uint32), val_lengths, device,
-        pad_valid=pad_valid)
+        np.ascontiguousarray(rows).view(np.uint32), val_lengths,
+        pad_valid=pad_valid, device=device)
     return words, ok.cpu().numpy()[:n]
 
 

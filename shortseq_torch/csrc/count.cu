@@ -5,7 +5,7 @@
 // unique_count (:199-259): boundary flags, segment sums with the int32
 // wrap verdict, the key scatter, n_unique over the live prefix, pad
 // normalization and the whole-table poison.  The sort before it is
-// torch.sort in count/device.py; it hands this kernel the permutation
+// kernel S (csrc/sort.cu); it hands this kernel the permutation
 // `perm` that orders rows by (length, lane_0 .. lane_{W-1}), lanes
 // unsigned (W <= 6), or by kernel I's key, then length (W > 6), PAD rows
 // (length = int32 max) last either way.  Rows are read through `perm`,
@@ -88,11 +88,11 @@
 // block.  A PAD row's key is the largest, (0xFFFFFFFF, 0xFFFFFFFF); any
 // other row's is the JAX package's arithmetic constant for constant in
 // uint32 with wrap.  The key is ((int32)(h1 ^ 0x80000000)) << 32 | h2,
-// whose signed order is the unsigned order of (h1, h2), as torch.sort
-// needs.  Bound: the rows' bytes, read once in order.  At W = 64 a
-// warp's 16-byte loads fall 256 bytes apart, so each load moves whole
-// 32-byte sectors and the next load finds the other half in L1 while
-// the line stays there.
+// whose signed order is the unsigned order of (h1, h2) (kernel S sorts
+// it with bit 63 flipped back, as unsigned).  Bound: the rows' bytes,
+// read once in order.  At W = 64 a warp's 16-byte loads fall 256 bytes
+// apart, so each load moves whole 32-byte sectors and the next load
+// finds the other half in L1 while the line stays there.
 //
 // Nothing syncs with the host.
 

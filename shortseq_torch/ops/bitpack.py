@@ -133,9 +133,10 @@ def pack_words(ascii_u8: torch.Tensor) -> torch.Tensor:
     return pack_words_u32(_u8_to_u32(ascii_u8))
 
 
-def pack_rows(mat_u32: np.ndarray, device) -> torch.Tensor:
+def pack_rows(mat_u32: np.ndarray, *, device="cuda") -> torch.Tensor:
     """Host entry for construction without validation: numpy `[N, W4]`
-    uint32 view -> `[N, W4 / 4]` words on `device` (no row folding)."""
+    uint32 view -> `[N, W4 / 4]` words on `device` (no row folding;
+    "cuda" raises without a card)."""
     x = from_numpy_u32(mat_u32).to(torch.device(device))
     return pack_words_u32(x)
 
@@ -167,9 +168,10 @@ pack_and_validate_u32.launches = 0
 
 
 def pack_and_validate_rows(mat_u32: np.ndarray, lengths: np.ndarray,
-                           device, pad_valid: bool = False):
+                           pad_valid: bool = False, *, device="cuda"):
     """Host entry: numpy `[N, W4]` uint32 view + `[N]` lengths ->
-    (`[N, W4 / 4]` int32 words, `[N]` bool ok) on `device`.  Replaces
+    (`[N, W4 / 4]` int32 words, `[N]` bool ok) on `device` ("cuda"
+    raises without a card).  Replaces
     count/ingest.pack_validate_padded for the UMI slice: no batch padding
     (PyTorch compiles nothing per shape) and no row folding."""
     device = torch.device(device)

@@ -99,7 +99,7 @@ def _pack_validate_matrix(mat, lengths, device):
         mat = np.pad(mat, ((0, 0), (0, width - mat.shape[1])))
     lengths = np.ascontiguousarray(lengths, np.int32)
     words, ok = pack_and_validate_rows(
-        np.ascontiguousarray(mat).view(np.uint32), lengths, device)
+        np.ascontiguousarray(mat).view(np.uint32), lengths, device=device)
     ok = ok.cpu().numpy()
     if not ok.all():
         i = int(np.argmin(ok))

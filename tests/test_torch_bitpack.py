@@ -134,7 +134,8 @@ class TestPackValidate:
         mat[:, 0] = ord("A")
         mat[:, 1] = np.arange(256)
         lens = np.full(256, 2, np.int32)
-        _, ok = tb.pack_and_validate_rows(mat.view(np.uint32), lens, "cpu")
+        _, ok = tb.pack_and_validate_rows(mat.view(np.uint32), lens,
+                                          device="cpu")
         np.testing.assert_array_equal(ok.numpy(), BLOOM_PASS)
 
     @pytest.mark.parametrize("pad_valid", [False, True])
@@ -148,7 +149,7 @@ class TestPackValidate:
         bad = rng.random(mat.shape) < 0.005
         mat[bad] = rng.integers(0, 256, size=int(bad.sum()))
         words_t, ok_t = tb.pack_and_validate_rows(
-            mat.view(np.uint32), lens, "cpu", pad_valid=pad_valid)
+            mat.view(np.uint32), lens, pad_valid=pad_valid, device="cpu")
         words_j, ok_j = pack_validate_padded(mat, lens, min_pad=1,
                                              pad_valid=pad_valid)
         assert words_t.device.type == "cpu"

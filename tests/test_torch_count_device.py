@@ -1,5 +1,5 @@
-"""shortseq_torch's unique_count (torch.sort + the plain versions of
-kernels D and I on the CPU) against shortseq_tpu.count.device.unique_count
+"""shortseq_torch's unique_count (the plain versions of kernels S, D and
+I on the CPU) against shortseq_tpu.count.device.unique_count
 on the same inputs.  Mirrors tests/test_count_device.py:45-210 and the
 wrap and n_out cases of tests/test_advice_fixes.py.
 

@@ -1,6 +1,6 @@
 """shortseq_torch's CountTable against shortseq_tpu's on the same FASTQ,
 for the host and the device engine (the port's device engine on
-device="cpu": torch.sort, the row hash and kernel D's plain version).
+device="cpu": the plain versions of kernels S, I and D).
 Mirrors tests/test_count_table.py.
 
 Two files: "narrow" holds reads of at most 96 nt (width buckets of 2 and

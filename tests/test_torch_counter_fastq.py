@@ -1,7 +1,7 @@
 """shortseq_torch's read_and_count_fastq(_table), its ingest, and the
 `count` and `pack` CLI against shortseq_tpu on the same files.  Host and
 device engines; the port's device engine runs on device="cpu" here
-(torch.sort + the plain versions of kernels A and D).  Mirrors
+(the plain versions of kernels A, S and D).  Mirrors
 tests/test_counter_fastq.py, tests/test_streaming_ingest.py and
 tests/test_cli.py.
 

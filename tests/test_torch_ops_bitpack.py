@@ -44,7 +44,7 @@ def test_pack_words_u8_and_pack_rows_match_jax(w4):
     want = np.asarray(jb.pack_words(mat))
     np.testing.assert_array_equal(
         to_numpy_u32(tb.pack_words(torch.from_numpy(mat))), want)
-    got = tb.pack_rows(mat.view(np.uint32), "cpu")
+    got = tb.pack_rows(mat.view(np.uint32), device="cpu")
     assert got.device.type == "cpu"
     np.testing.assert_array_equal(
         to_numpy_u32(got), np.asarray(jb.pack_rows(mat.view(np.uint32))))
@@ -63,7 +63,7 @@ def test_pack_words_rejects_lane_count_not_multiple_of_4():
     with pytest.raises(ValueError, match="multiple of 4"):
         tb.pack_words_u32(torch.zeros((2, 6), dtype=torch.int32))
     with pytest.raises(ValueError, match="multiple of 4"):
-        tb.pack_rows(np.zeros((2, 6), np.uint32), "cpu")
+        tb.pack_rows(np.zeros((2, 6), np.uint32), device="cpu")
     with pytest.raises(ValueError, match="multiple of 4"):
         jb.pack_words_u32(np.zeros((2, 6), np.uint32))
     with pytest.raises(ValueError, match="multiple of 4"):

@@ -4,7 +4,9 @@ it is imported here: a module's public names are its top-level defs,
 classes and module constants, its `__all__`, and, for a package's
 `__init__.py`, the names it imports from its own package.  Two modules
 live under new names in the port (MODULE_MAP); EXEMPT holds what the port
-leaves out on purpose, each with its reason."""
+leaves out on purpose, each with its reason.  Each public function and
+method of the JAX package also takes the same calls in the port
+(test_signatures_take_jax_calls)."""
 
 import ast
 import importlib
@@ -34,6 +36,19 @@ EXEMPT = {
     ("dist/mesh.py", "data_mesh.devices"):
         "a list of jax devices; the port's mesh is a torch.distributed "
         "group (data_mesh(group=, device=))",
+    ("ops/pallas_kernels.py", "hamming_pairwise_tiled.tile"):
+        "the Pallas kernel's row tile; kernel B's tiles are fixed by its "
+        "design for the card",
+    ("ops/pallas_kernels.py", "hamming_pairwise_tiled.interpret"):
+        "runs the Pallas kernel in interpret mode on the CPU; the port's "
+        "CPU tensors take the plain version",
+    ("ops/pallas_kernels.py", "calibrate_pairwise.platform"):
+        "a jax platform name; the port calibrates on `device` (the "
+        "parameter at its position)",
+    ("dist/mesh.py", "initialize_distributed.**kwargs"):
+        "forwarded to jax.distributed.initialize; the port names "
+        "torch.distributed's (init_method, rank, world_size, device, "
+        "timeout)",
 }
 
 
@@ -81,9 +96,47 @@ def _jax_params(rel, fn):
     tree = ast.parse((JAX_PKG / rel).read_text())
     for node in tree.body:
         if isinstance(node, ast.FunctionDef) and node.name == fn:
-            a = node.args
-            return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs}
+            return set(_arg_names(node.args))
     raise AssertionError(f"{rel} defines no function {fn}")
+
+
+def _arg_names(a):
+    """A def's parameter names, `*args` and `**kwargs` with their stars."""
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    if a.vararg:
+        names.append("*" + a.vararg.arg)
+    if a.kwarg:
+        names.append("**" + a.kwarg.arg)
+    return names
+
+
+def _port_params(fn):
+    """The port callable's parameter names, starred as _arg_names."""
+    stars = {inspect.Parameter.VAR_POSITIONAL: "*",
+             inspect.Parameter.VAR_KEYWORD: "**"}
+    return [stars.get(p.kind, "") + p.name
+            for p in inspect.signature(fn).parameters.values()]
+
+
+def _public_defs(rel):
+    """(qualified name, ast def, drops its first parameter) of each
+    public function of shortseq_tpu/<rel> and each public method (and
+    __init__) of its public classes."""
+    tree = ast.parse((JAX_PKG / rel).read_text())
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and not node.name.startswith("_"):
+            yield node.name, node, False
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef) and (
+                        item.name == "__init__"
+                        or not item.name.startswith("_")):
+                    decorators = {getattr(d, "id", None)
+                                  for d in item.decorator_list}
+                    if "property" in decorators:
+                        continue
+                    yield (f"{node.name}.{item.name}", item,
+                           "classmethod" in decorators)
 
 
 def test_module_list_is_complete():
@@ -104,6 +157,55 @@ def test_public_names_have_counterparts(rel):
     assert not missing, f"shortseq_torch lacks {rel}: {missing}"
 
 
+@pytest.mark.parametrize("rel", _module_files())
+def test_signatures_take_jax_calls(rel):
+    """Each public function and method of the JAX module takes the same
+    calls in the port: JAX's positional parameters stand at the same
+    positions, its keyword-only ones and its *args / **kwargs exist, and
+    every parameter the port adds has a default (so a JAX-style call
+    never fills one by position).  EXEMPT names the departures that the
+    TPU forces, as "function.parameter"."""
+    mod = _port_module(rel)
+    exempt = {name for (r, name), _ in EXEMPT.items() if r == rel}
+    bad = []
+    for qual, node, bound in _public_defs(rel):
+        if qual in exempt:
+            continue
+        target = mod
+        for part in qual.split("."):
+            target = getattr(target, part, None)
+        if target is None or not callable(target):
+            continue          # test_public_names_have_counterparts' case
+        a = node.args
+        positional = [x.arg for x in a.posonlyargs + a.args][bound:]
+        port = inspect.signature(target).parameters
+        port_positional = [
+            p.name for p in port.values()
+            if p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                          inspect.Parameter.POSITIONAL_OR_KEYWORD)]
+        skip = {name.split(".")[-1] for name in exempt
+                if name.rsplit(".", 1)[0] == qual}
+        for i, name in enumerate(positional):
+            if name in skip:
+                continue
+            if i >= len(port_positional) or port_positional[i] != name:
+                bad.append(f"{qual}: {name} is not positional parameter {i}")
+        names = set(_port_params(target))
+        for name in [x.arg for x in a.kwonlyargs] \
+                + [n for n in _arg_names(a) if n.startswith("*")]:
+            if name not in skip and name not in names:
+                bad.append(f"{qual}: no {name}")
+        jax_names = {n.lstrip("*") for n in _arg_names(a)}
+        for p in port.values():
+            if p.name in jax_names or p.kind in (
+                    inspect.Parameter.VAR_POSITIONAL,
+                    inspect.Parameter.VAR_KEYWORD):
+                continue
+            if p.default is inspect.Parameter.empty:
+                bad.append(f"{qual}: the port's {p.name} has no default")
+    assert not bad, f"shortseq_torch {rel}: " + "; ".join(bad)
+
+
 @pytest.mark.parametrize("key", sorted(EXEMPT), ids="/".join)
 def test_exemptions_are_real(key):
     """Each exemption names something the JAX module has and the port
@@ -113,7 +215,7 @@ def test_exemptions_are_real(key):
     if "." in name:
         fn, param = name.split(".")
         assert param in _jax_params(rel, fn)
-        assert param not in inspect.signature(getattr(mod, fn)).parameters
+        assert param not in _port_params(getattr(mod, fn))
         return
     src = (JAX_PKG / rel).read_text()
     assert f"def {name}(" in src
