@@ -54,19 +54,27 @@ Phases, one line each; any failure raises and exits nonzero:
              colliding: the CPU's table; every seed: OverflowError), and
              unique_count on the card equal to the CPU's at [2M, 64] and
              [100003, 7]; kernel S (kernel_s, unique_count's row sort:
-             histograms, then one launch a digit) exact against its plain
-             version on 20 edge cases (sort_edge_cases: N = 1, a tile
-             +- 1, every key equal, all PAD, lengths 0 and 1024 beside
-             PAD, W = 1, 5, 6, 7, lanes with bit 31 set, heavy
-             duplicates, live lengths above 2046) and at the main path's
-             shapes (file 1's words [10M, 2], one of its 8 shards
-             [1.25M, 2], [1M, 6], and on the hash path [2M, 64] Zipf and
-             [2M, 10]), equal to the library path's torch.sort there
-             too, with its event and device times (each launch's at
-             [10M, 2], beside a copy of one pass's bytes), its bound, the
-             pass model, the plain and library times and unique_count
-             with either sort, and unique_count with torch.sort stubbed
-             to raise equal to the CPU's at every one of those shapes;
+             histograms, the plan on the card, then one launch a
+             candidate digit, no host read) exact against its plain
+             version and the library path on 30 edge cases
+             (sort_edge_cases: N = 1, 100, a tile +- 1, tile counts
+             around the card's resident blocks, every key equal, all
+             PAD, lengths 0 and 1024 beside PAD, only the length
+             varying, a single varying digit, W = 1, 3, 5, 6, 7, lanes
+             with bit 31 set, heavy duplicates, a Zipf run of one key
+             over 40 tiles, live lengths above 2046), its pass table
+             against the plain one, and at the main path's shapes (file
+             1's words [10M, 2], one of its 8 shards [1.25M, 2], [1M,
+             6], and on the hash path [2M, 64] Zipf and [2M, 10]), equal
+             to the library path's torch.sort there too, with its event
+             times and each launch's device time in order (the skipped
+             candidates' too), its bound, the pass model, the plain and
+             library times and unique_count with either sort; sort_rows,
+             _sort_keys and unique_count's key path under
+             torch.cuda.set_sync_debug_mode("error"); D on rows already
+             in S's order against D through S's perm at [10M, 2] and
+             [1.25M, 2]; and unique_count with torch.sort stubbed to
+             raise equal to the CPU's at every one of those shapes;
              kernel A's pack-only mode at [2M, 40]
              (150-nt rows; device time; exact at w = 1, 3, 5, 9, 10
              words), E at [2M, 10], F (kernel_f) static (8, 100) (one
@@ -328,6 +336,10 @@ class Timer:
         self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
 
     def __call__(self, fns, runs=7):
+        return [statistics.median(t) for t in self.samples(fns, runs)]
+
+    def samples(self, fns, runs=7):
+        """Each callable's CUDA-event ms of every run, in turns."""
         torch = self.torch
         for fn in fns:
             fn()
@@ -343,7 +355,7 @@ class Timer:
                 end.record()
                 torch.cuda.synchronize()
                 t.append(start.elapsed_time(end))
-        return [statistics.median(t) for t in times]
+        return times
 
 
 def host_us(torch, fn, calls=300):
@@ -1637,10 +1649,12 @@ def hash_sorts_library(keys, lengths):
     return s_hash, by_length[order]
 
 
-def sort_edge_cases(tile):
+def sort_edge_cases(tile, resident=None):
     """Kernel S's exactness cases, built from its tile's row count:
     (name, words uint32 [N, W], lengths int32 [N]).  W <= 6 goes through
-    sort_rows, wider rows through _sort_keys."""
+    sort_rows, wider rows through _sort_keys.  With `resident` (the
+    blocks of S's pass the card holds at once, ssq_sort_resident_blocks)
+    also tile counts just below, at and just above it."""
     import numpy as np
 
     pad = 2**31 - 1
@@ -1653,14 +1667,16 @@ def sort_edge_cases(tile):
         lengths[rng.random(n) < pad_share] = pad
         return words, lengths
 
-    cases = [("N = 1", *rows(1, 2)), ("N = 1, W = 7", *rows(1, 7))]
+    cases = [("N = 1", *rows(1, 2)), ("N = 1, W = 7", *rows(1, 7)),
+             ("N = 100 (under a tile)", *rows(100, 2, pad_share=0.1)),
+             ("N = 100 (under a tile), W = 7", *rows(100, 7))]
     for n in (tile - 1, tile, tile + 1, 3 * tile + 17):
         cases.append((f"N = {n} (tile {tile})", *rows(n, 2, pad_share=0.1)))
     words, lengths = rows(1, 2)
     n = 3 * tile + 5
     cases.append(("every key equal (every digit skipped)",
                   np.repeat(words, n, 0), np.repeat(lengths, n)))
-    cases.append(("every key equal, W = 10",
+    cases.append(("every key equal, W = 10 (by_length the identity)",
                   np.repeat(rows(1, 10)[0], n, 0), np.full(n, 150, np.int32)))
     words, lengths = rows(2 * tile + 9, 2)
     cases.append(("all PAD (stale words)", words, np.full_like(lengths, pad)))
@@ -1669,7 +1685,16 @@ def sort_edge_cases(tile):
     words, lengths = rows(2 * tile + 7, 2)
     lengths = rng.choice(np.array([0, 1024, pad], np.int32), size=len(words))
     cases.append(("lengths 0 and 1024 beside PAD", words, lengths))
-    for w in (1, 5, 6, 7):
+    words, lengths = rows(3 * tile + 1, 3, (0, 1024), 0.05)
+    cases.append(("only the length varies (2 digits), W = 3",
+                  np.repeat(words[:1], len(words), 0), lengths))
+    words, lengths = rows(3 * tile + 2, 2)
+    words = np.repeat(words[:1], len(words), 0)
+    words[:, 1] ^= rng.integers(0, 256, size=len(words)).astype(np.uint32) \
+        << np.uint32(16)
+    cases.append(("a single varying digit (lane 1, bits 16-23)", words,
+                  np.full(len(words), 24, np.int32)))
+    for w in (1, 3, 5, 6, 7):
         cases.append((f"W = {w}, 5% PAD",
                       *rows(2 * tile + 3, w, (0, 16 * w), 0.05)))
     words, lengths = rows(2 * tile + 11, 2)
@@ -1682,9 +1707,18 @@ def sort_edge_cases(tile):
         pick = rng.integers(0, 5, size=3 * tile + 11)
         cases.append((f"heavy duplicates, 5 keys, W = {w}", pool[pick],
                       pool_len[pick]))
+    for w in (2, 10):
+        # Zipf(1.5) over 50 keys: one key holds about 40% of 40 tiles.
+        pool, pool_len = rows(50, w, (20, 24))
+        pick = np.minimum(rng.zipf(1.5, size=40 * tile) - 1, 49)
+        cases.append((f"a Zipf run of one key over 40 tiles, W = {w}",
+                      pool[pick], pool_len[pick]))
     for w in (2, 8):
         cases.append((f"live lengths up to 5000 (the full-width length), "
                       f"W = {w}", *rows(2 * tile + 13, w, (0, 5000), 0.1)))
+    for tiles in (resident - 1, resident, resident + 1) if resident else ():
+        cases.append((f"{tiles} tiles ({resident} blocks resident)",
+                      *rows(tiles * tile - 3, 2)))
     return cases
 
 
@@ -1707,49 +1741,122 @@ def file1_words(torch, rng, n):
 
 
 def s_exact(torch, cdev, name, words, lengths):
-    """Kernel S against its plain version on one input: the histograms
-    and the permutation (W <= 6: sort_rows), or the length order, the
-    histograms of the lengths and keys, the permutation and the sorted
-    keys (wider rows: _sort_keys of kernel I's seed-0 keys as the first
-    hash family and as a later one).  Returns (max abs
-    err, the pass model's bytes a row: each digit pass reads and writes a
-    key, 8 bytes for a lane pair or the hash key, else 4, and a 4-byte
-    index)."""
+    """Kernel S against its plain version and the library path on one
+    input: the histograms, the pass table and the permutation (W <= 6:
+    sort_rows), or the histograms of the lengths and keys, the table, the
+    length order (the identity when every row has one length), the
+    permutation and the sorted keys (wider rows: _sort_keys of kernel I's
+    seed-0 keys as the first hash family and as a later one).  Returns
+    (max abs err, S's candidate digits in launch order as (column,
+    shift, table mode))."""
     n, w = words.shape
     if w <= cdev._LEX_SORT_MAX_LANES:
-        hist, host = cdev._sort_hist(words, lengths, None, n)
-        exact(f"S histograms, {name}", [hist],
-              [cdev._sort_hist_plain(words, lengths, None)])
-        plan = cdev._sort_plan(host, w, cdev._key_path_columns(w))
-        return exact(f"S, {name}", [cdev.sort_rows(words, lengths)],
-                     [cdev.sort_rows_plain(words, lengths)]), pass_bytes(
-                         cdev, plan)
-    keys = cdev._row_hash(words, lengths, 0)
-    hist, host = cdev._sort_hist(None, lengths, keys, n)
-    exact(f"S histograms of lengths and keys, {name}", [hist],
-          [cdev._sort_hist_plain(None, lengths, keys)])
-    model = pass_bytes(cdev, cdev._sort_plan(host, 0, [cdev._LEN_MAPPED])) \
-        + pass_bytes(cdev, cdev._sort_plan(host, 0, [cdev._HASH_KEY]))
-    # The first hash family (lengths sorted with the keys), then a later
-    # one (from the first's length order).
+        part, keys = cdev._KEY_PATH, None
+        run = cdev._sort_launch(words, lengths, None, None, part, n)
+        hist = cdev._sort_hist_plain(words, lengths, None)
+    else:
+        part, w, keys = cdev._HASH_FIRST, 0, cdev._row_hash(words, lengths, 0)
+        run = cdev._sort_launch(None, lengths, keys, None, part, n)
+        hist = cdev._sort_hist_plain(None, lengths, keys)
+    exact(f"S histograms, {name}", [run.hist], [hist])
+    exact(f"S pass table, {name}", [run.table.cpu()],
+          [cdev._sort_table_plain(hist.cpu(), w, part)])
+    passes = s_passes(cdev, run.table.cpu(), w, part)
+    if keys is None:
+        perm = cdev.sort_rows(words, lengths)
+        exact(f"S, {name}, against the library path", [perm],
+              [sort_rows_library(words, lengths)])
+        return exact(f"S, {name}", [perm],
+                     [cdev.sort_rows_plain(words, lengths)]), passes
     s_hash, perm, by = cdev._sort_keys(keys, lengths)
     by_plain = cdev._length_order_plain(lengths)
-    if (by is None) != (by_plain is None):
-        raise AssertionError(f"S, {name}: length order {by} against "
-                             f"{by_plain}")
-    if by is not None:
-        exact(f"S length order, {name}", [by.long()], [by_plain])
+    exact(f"S length order, {name}", [by.long()],
+          [torch.arange(n, device=by.device) if by_plain is None
+           else by_plain])
     exact(f"S, {name}, from the length order",
           list(cdev._sort_keys(keys, None, by)[:2]),
           list(cdev._sort_keys_plain(keys, None, by_plain)[:2]))
+    exact(f"S, {name}, against the library path", [s_hash, perm],
+          list(hash_sorts_library(keys, lengths)))
     return exact(f"S, {name}", [s_hash, perm],
-                 list(cdev._sort_keys_plain(keys, lengths)[:2])), model
+                 list(cdev._sort_keys_plain(keys, lengths)[:2])), passes
 
 
-def pass_bytes(cdev, plan):
-    """The pass model's bytes a row of S's plan."""
+def s_passes(cdev, table, w, part):
+    """(column, shift, mode) of each candidate digit of one S call, in
+    launch order, from its pass table (int32 [candidates, 4] on the
+    host)."""
+    cands = [c for cols in cdev._sort_columns(w, part)
+             for c in cdev._candidates(cols)]
+    return [(col, shift, mode)
+            for (col, shift), mode in zip(cands, table[:, 0].tolist())]
+
+
+def pass_bytes(cdev, passes):
+    """The pass model's bytes a row of S's varying digits: each reads and
+    writes a key, 8 bytes for a lane pair or the hash key, else 4, and a
+    4-byte index."""
     return sum(2 * ((8 if col >= cdev._PAIR or col == cdev._HASH_KEY else 4)
-                    + 4) for col, _ in plan.tolist())
+                    + 4) for col, _, mode in passes if mode == cdev._PASS)
+
+
+def s_sequence(torch, cdev, fn, passes):
+    """S's launches of one call in order, from torch.profiler: the
+    histograms, the plan, then each candidate's pass with its device ms
+    (a skipped candidate's launch returns at once).  Returns (text, the
+    skipped launches' median device ms or None)."""
+    seq = launch_sequence(torch, fn, "sort_")
+    if len(seq) != 2 + len(passes):
+        return (f"{len(seq)} launches seen, not the 2 + {len(passes)} "
+                f"queued (the profiler dropped some)", None)
+    names = {cdev._PASS: "", cdev._SKIP: " skipped", cdev._COPY: " copy"}
+    skipped = [ms for ms, (_, _, mode) in zip(seq[2:], passes)
+               if mode == cdev._SKIP]
+    text = (f"hist {seq[0]:.4f}, plan {seq[1]:.4f}; "
+            + ", ".join(f"{'L' if col < 0 and col != cdev._HASH_KEY else ''}"
+                        f"{shift}{names[mode]} {ms:.4f}"
+                        for ms, (col, shift, mode) in zip(seq[2:], passes))
+            + f"; {len(passes)} candidate launches, {len(skipped)} skipped, "
+            f"device ms in all {sum(seq):.4f}")
+    return text, statistics.median(skipped) if skipped else None
+
+
+def no_host_sync(torch, name, fn):
+    """fn under torch.cuda.set_sync_debug_mode("error"): raises if it
+    synchronizes with the host (a read back, an .item(), a .cpu())."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{name}: a host sync ({e})") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def d_in_order(torch, timer, cdev, lines, shapes):
+    """Kernel D on rows already in S's order against D on the same rows
+    through S's permutation (D's code unchanged): the rows gathered into
+    sorted order once, then group_count with perm = arange; both tables
+    equal, with CUDA-event and device times.  The number that decides
+    whether S should write the sorted rows for D."""
+    for name, words, lengths in shapes:
+        n = len(lengths)
+        weights = torch.ones(n, dtype=torch.int32, device="cuda")
+        perm = cdev.sort_rows(words, lengths)
+        s_words, s_len = words[perm].contiguous(), lengths[perm].contiguous()
+        ident = torch.arange(n, device="cuda")
+        fns = [lambda: cdev.group_count(words, lengths, weights, perm, n),
+               lambda: cdev.group_count(s_words, s_len, weights, ident, n)]
+        exact(f"D on in-order rows, {name}", fns[1](), fns[0]())
+        t = timer(fns)
+        splits = [launch_split(torch, fn, ("group_tile", "group_finish"))
+                  for fn in fns]
+        lines.append(f"D {name} through S's perm: {t[0]:.4f} ms ({splits[0]}"
+                     f"); on the same rows in sorted order (perm = arange): "
+                     f"{t[1]:.4f} ms ({splits[1]})")
+        del weights, perm, s_words, s_len, ident
 
 
 def no_library_sort(torch):
@@ -1784,34 +1891,46 @@ def no_library_sort(torch):
 def kernel_s(torch, timer, rng, lines):
     """Kernel S (unique_count's row sort) against its plain version on
     the card:
-      - the histograms and the permutation (and on the hash path the
-        length order and the sorted keys) exact on sort_edge_cases;
+      - the histograms, the pass table and the permutation (and on the
+        hash path the length order and the sorted keys) exact against the
+        plain versions and the library path on sort_edge_cases, with the
+        tile counts around the card's resident blocks;
       - at the main path's shapes: file 1's words [10M,2] (the JSON line),
         one of its 8 shards [1.25M,2], [1M,6] from a 300,000-row pool,
         and on the hash path file 2's bucket [2M,64] Zipf and [2M,10]
-        (150-nt rows): exact against the plain version and against the
-        library path (a stable sort's permutation is unique), the plan's
-        passes, S's CUDA-event and device times (histogram and passes a
-        launch) beside its bound and the pass model, the plain version's
-        and the library path's times, and unique_count with S and with
-        the library path's sort, in turns;
+        (150-nt rows): exact, the varying and skipped candidates, S's
+        CUDA-event and device times (each launch in order, the empty
+        launch's cost) beside its bound and the pass model, the plain
+        version's and the library path's times, and unique_count with S
+        and with the library path's sort, in turns;
+      - sort_rows and _sort_keys at [10M,2] and [2M,64], and unique_count
+        at [10M,2], under torch.cuda.set_sync_debug_mode("error"): no host
+        sync;
+      - D on rows in S's order against D through S's perm (d_in_order) at
+        [10M,2] and [1.25M,2];
       - unique_count with torch.sort and torch.argsort stubbed to raise,
         at every shape, equal to unique_count on the CPU array for array
         (after every timing: the CPU work slows later launches).
     Returns the JSON line's row_sort entry ([10M,2])."""
     import numpy as np
 
+    from shortseq_torch import _build
     from shortseq_torch.count import device as cdev
     from shortseq_torch.ops.lanes import from_numpy_u32
 
+    lib = _build.cuda_lib()
+    resident = [lib.ssq_sort_resident_blocks(wide) for wide in (0, 1)]
     errs = []
-    cases = sort_edge_cases(cdev.SORT_TILE_ROWS)
+    cases = sort_edge_cases(cdev.SORT_TILE_ROWS, resident[1])
     for name, words, lens in cases:
         errs.append(s_exact(torch, cdev, name, from_numpy_u32(words).cuda(),
                             torch.from_numpy(lens).cuda())[0])
     torch.cuda.synchronize()
-    lines.append(f"S: {len(cases)} edge cases exact (tile "
-                 f"{cdev.SORT_TILE_ROWS} rows), histograms included")
+    lines.append(f"S: {len(cases)} edge cases exact against the plain "
+                 f"versions and the library path (tile "
+                 f"{cdev.SORT_TILE_ROWS} rows), histograms and pass tables "
+                 f"included; pass blocks resident: {resident[0]} with 4-byte "
+                 f"keys, {resident[1]} with 8-byte keys")
 
     w1, l1 = file1_words(torch, rng, 10_000_000)
     pool = card_lanes(torch, rng, 300_000, 6)
@@ -1829,12 +1948,13 @@ def kernel_s(torch, timer, rng, lines):
               ("[1.25M,2] one of file 1's 8 shards", w1[:shard], l1[:shard]),
               ("[1M,6]", w6, l6), ("[2M,64] Zipf, hash path", w64, l64),
               ("[2M,10], hash path", w10, l10)]
-    main = None
+    main, empty = None, []
     for name, words, lengths in shapes:
         n, w = words.shape
         weights = torch.ones(n, dtype=torch.int32, device="cuda")
-        err, row_bytes = s_exact(torch, cdev, name, words, lengths)
+        err, passes = s_exact(torch, cdev, name, words, lengths)
         errs.append(err)
+        row_bytes = pass_bytes(cdev, passes)
         if w <= cdev._LEX_SORT_MAX_LANES:
             def s_fn():
                 return cdev.sort_rows(words, lengths)
@@ -1845,8 +1965,6 @@ def kernel_s(torch, timer, rng, lines):
             def library():
                 return sort_rows_library(words, lengths)
 
-            exact(f"S, {name}, against the library path", [s_fn()],
-                  [library()])
             bnd = bound([words, lengths], [s_fn()])
         else:
             keys = cdev._row_hash(words, lengths, 0)
@@ -1860,8 +1978,6 @@ def kernel_s(torch, timer, rng, lines):
             def library():
                 return hash_sorts_library(keys, lengths)
 
-            exact(f"S, {name}, against the library path", list(s_fn()),
-                  list(library()))
             bnd = bound([keys, lengths], list(s_fn()))
 
         def unique_library():
@@ -1880,31 +1996,53 @@ def kernel_s(torch, timer, rng, lines):
         t = timer([s_fn, library, plain,
                    lambda: cdev.unique_count(words, lengths, weights),
                    unique_library], runs=5)
-        split = launch_split(torch, s_fn, ("sort_hist", "sort_pass"))
+        split = launch_split(torch, s_fn,
+                             ("sort_hist", "sort_plan", "sort_pass"))
         model = row_bytes * n / HBM_BYTES_PER_S * 1e3
-        passes = len(launch_sequence(torch, s_fn, "sort_pass"))
+        seq, skip_ms = s_sequence(torch, cdev, s_fn, passes)
+        if skip_ms is not None:
+            empty.append(skip_ms)
+        varying = sum(mode == cdev._PASS for *_, mode in passes)
         lines.append(
-            f"S {name}: {t[0]:.4f} ms, {passes} digit passes; library path "
-            f"{t[1]:.4f} ms; plain {t[2]:.4f} ms; {split}; {bound_text(bnd)}"
-            f", pass model {model:.4f} ms ({row_bytes} B a row); "
-            f"unique_count with S {t[3]:.4f} ms, with the library path's "
-            f"sort {t[4]:.4f} ms")
+            f"S {name}: {t[0]:.4f} ms, {varying} digit passes of "
+            f"{len(passes)} candidates; library path {t[1]:.4f} ms; plain "
+            f"{t[2]:.4f} ms; {split}; {bound_text(bnd)}, pass "
+            f"model {model:.4f} ms ({row_bytes} B a row); unique_count with "
+            f"S {t[3]:.4f} ms, with the library path's sort {t[4]:.4f} ms")
+        lines.append(f"S {name}, device ms of each launch in order: {seq}")
         if main is None:
             main = (t, bnd)
-            seq = launch_sequence(torch, s_fn, "sort_")
             # A copy of one carrying pass's bytes (a key and an index a
             # row in, the same out): the rate a pass could reach.
             src = torch.empty(2 * n, dtype=torch.int32, device="cuda")
             dst = torch.empty_like(src)
             copy_ms = timer([lambda: dst.copy_(src)])[0]
             del src, dst
-            lines.append(
-                f"S {name}, device ms of each launch in order (histograms, "
-                f"then the passes): "
-                + (", ".join(f"{ms:.4f}" for ms in seq) or "not measured")
-                + f"; a copy of one carrying pass's bytes ({16 * n >> 20} "
-                f"MiB moved) {copy_ms:.4f} ms")
+            lines.append(f"S {name}: a copy of one 32-bit carrying pass's "
+                         f"bytes ({16 * n >> 20} MiB moved) {copy_ms:.4f} ms")
         del weights
+    lines.append("S: an empty (skipped) pass launch's device ms, median "
+                 "at each shape with one: "
+                 + (", ".join(f"{ms:.4f}" for ms in empty) or "none seen"))
+
+    # No host sync inside S, nor in unique_count's key path.
+    keys64 = cdev._row_hash(w64, l64, 0)
+    checks = {"sort_rows [10M,2]": lambda: cdev.sort_rows(w1, l1),
+              "_sort_keys [2M,64], first family":
+                  lambda: cdev._sort_keys(keys64, l64),
+              "_sort_keys [2M,64], a later family": lambda: cdev._sort_keys(
+                  keys64, None, cdev._sort_keys(keys64, l64)[2]),
+              "sort_rows [2M,64]": lambda: cdev.sort_rows(w64, l64),
+              "unique_count [10M,2]": lambda: cdev.unique_count(
+                  w1, l1, torch.ones(len(l1), dtype=torch.int32,
+                                     device="cuda"))}
+    for name, fn in checks.items():
+        no_host_sync(torch, name, fn)
+    del keys64
+    lines.append("S: no host sync under torch.cuda.set_sync_debug_mode("
+                 "'error') in " + ", ".join(checks))
+
+    d_in_order(torch, timer, cdev, lines, shapes[:2])
 
     # The main path without the library sort, then the CPU's tables.
     before = cdev.sort_rows.launches
@@ -2495,6 +2633,78 @@ def d_against(other):
                   + launch_split(torch, fn, ("group_tile", "group_finish")),
                   flush=True)
         del words, lengths, weights, perm, want
+
+
+def s_against(other, runs=9):
+    """Kernel S of this tree and of another checkout (see load_other, e.g.
+    the parent commit unpacked into build/parent/), in turns in one
+    process: `python3 -c "import chip_smoke as cs;
+    cs.s_against('build/parent')"`.  At kernel_s's [10M,2], [1.25M,2],
+    [1M,6] and [2M,64] Zipf (the hash path's first family) shapes, each
+    tree's S exact against this tree's, its CUDA-event ms (median and
+    quartiles of `runs`, L2 flushed before each) and its device ms a
+    launch; then unique_count with each tree (its own S) at [10M,2] and
+    [2M,64], the tables equal."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from shortseq_torch.count import device as cdev
+
+    sys.path.insert(0, str(ROOT))
+    phase("build", phase_build)
+    odev = importlib.import_module(load_other(other).__name__
+                                   + ".count.device")
+    timer, rng = Timer(torch), np.random.default_rng(0)
+    w1, l1 = file1_words(torch, rng, 10_000_000)
+    pool = card_lanes(torch, rng, 300_000, 6)
+    pool_len = torch.from_numpy(rng.integers(33, 97, size=300_000)
+                                .astype(np.int32)).cuda()
+    pick = torch.from_numpy(rng.integers(0, 300_000, size=1_000_000)).cuda()
+    w6, l6 = pool[pick].contiguous(), pool_len[pick]
+    del pool, pool_len, pick
+    w64, l64, _ = file2_words(torch, rng)
+    keys = cdev._row_hash(w64, l64, 0)
+    shard = 1_250_000
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+
+    def ms_text(xs):
+        q = statistics.quantiles(xs, n=4)
+        return (f"{statistics.median(xs):.4f} ms (quartiles {q[0]:.4f}-"
+                f"{q[2]:.4f}, {len(xs)} runs)")
+
+    def compare(name, fns, tags):
+        got = [out if isinstance(out, tuple) else (out,)
+               for out in (fn() for fn in fns.values())]
+        for tree, out in zip(list(fns)[1:], got[1:]):
+            exact(f"{name}, {tree} against this tree", list(out),
+                  list(got[0]))
+        del got
+        for (tree, fn), xs in zip(fns.items(),
+                                  timer.samples(list(fns.values()), runs)):
+            split = launch_split(torch, fn, tags) if tags else ""
+            print(f"  {name}, {tree}: {ms_text(xs)}; {split}; {smi}",
+                  flush=True)
+
+    trees = {"this tree": cdev, f"the tree at {other}": odev}
+    tags = ("sort_hist", "sort_plan", "sort_pass")
+    for name, words, lengths in (("S [10M,2]", w1, l1),
+                                 ("S [1.25M,2]", w1[:shard], l1[:shard]),
+                                 ("S [1M,6]", w6, l6)):
+        compare(name, {t: (lambda m=m, x=words, y=lengths: m.sort_rows(x, y))
+                       for t, m in trees.items()}, tags)
+    compare("S [2M,64] Zipf, hash path",
+            {t: (lambda m=m: m._sort_keys(keys, l64)[:2])
+             for t, m in trees.items()}, tags)
+    for name, words, lengths in (("unique_count [10M,2]", w1, l1),
+                                 ("unique_count [2M,64] Zipf", w64, l64)):
+        weights = torch.ones(len(lengths), dtype=torch.int32, device="cuda")
+        compare(name, {t: (lambda m=m, x=words, y=lengths:
+                           tuple(m.unique_count(x, y, weights)))
+                       for t, m in trees.items()}, ())
 
 
 def count_walls(other=None, reps=5):

@@ -246,13 +246,13 @@ _CUDA_SIGNATURES = {
     # u_words, u_lengths, counts, sums, scratch, n_out, w, stream
     "ssq_group_finish": [_P, _P, _P, _P, _P, _I64, _I32, _P],
     "ssq_group_tile_rows": [],
-    # words (None: no lanes), w, lengths, full, keys, hist, n, stream
-    "ssq_sort_hist": [_P, _I32, _P, _I32, _P, _P, _I64, _P],
-    # plan (host int32 [passes, 2]), passes, words, w, lengths, keys,
-    # idx_in, hist, scratch, key_buf, idx_buf, perm, s_hash, n, stream
-    "ssq_sort_passes": [_P, _I32, _P, _I32, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I64, _P],
+    # words (None on the hash path), w, lengths, keys, idx_in, part,
+    # scratch, key_buf, idx_buf, perm, s_hash, order, n, stream
+    "ssq_sort": [_P, _I32, _P, _P, _P, _I32, _P, _P, _P, _P, _P, _P, _I64,
+                 _P],
     "ssq_sort_tile_rows": [],
+    # wide -> blocks of S's digit pass resident on the card at once
+    "ssq_sort_resident_blocks": [_I32],
     # words, out, total (words), stream
     "ssq_unpack_ascii": [_P, _P, _I64, _P],
     # words, lengths, starts (None: start), new_lengths (None: length),

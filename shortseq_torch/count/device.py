@@ -5,7 +5,9 @@ Counting is sort-based grouping, in the JAX package's order:
 
   1. group equal rows adjacently, by kernel S (csrc/sort.cu), a stable
      LSD radix sort over 8-bit digits that skips every digit holding one
-     value over all rows (_sort_plan).  Rows of at most
+     value over all rows (the plan, made on the card: _sort_table_plain
+     is its plain version, _sort_plan the digits it keeps), with no read
+     back to the host.  Rows of at most
      _LEX_SORT_MAX_LANES lanes: sort_rows, by (length, lane_0, ...,
      lane_{W-1}), lanes compared as unsigned, PAD rows last.  Wider rows:
      _sort_keys for each hash family, a stable sort by (h1, h2, length)
@@ -41,6 +43,8 @@ words), and are excluded from `n_unique`.
 """
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -103,6 +107,22 @@ _COLUMN_BYTES = {_LEN_FULL: 4, _LEN_MAPPED: 2, _HASH_KEY: 8}
 _SLOT_AFTER_LANES = {_LEN_FULL: 0, _LEN_MAPPED: 4, _HASH_KEY: 6}
 _MAPPED_PAD = 2047
 _INT64_MIN = -2**63
+#: The widest rows sort_rows takes on the card (kMaxLanes in
+#: csrc/sort.cu): reads of up to 1024 nt.
+_SORT_MAX_LANES = 64
+
+#: What one call of S sorts (ssq_sort's `part` in csrc/sort.cu): the key
+#: path's rows, the hash path's first family (the lengths, then the keys
+#: from their order) or a later family (the keys from a given order).
+_KEY_PATH, _HASH_FIRST, _HASH_NEXT = 0, 1, 2
+
+#: An entry of S's pass table (int32 [4]: mode, k, gather, out): a
+#: candidate digit that is constant (skipped), that takes pass k of its
+#: sort, or, when no digit of the sort varies, its last candidate, which
+#: copies the input order to the result; out: carried keys and indices,
+#: indices only, or the sort's result.
+_SKIP, _PASS, _COPY = 0, 1, 2
+_CARRY, _INDICES, _RESULT = 0, 1, 2
 
 
 def _digit_slot(col: int, shift: int, w: int) -> int:
@@ -141,6 +161,69 @@ def _sort_plan(hist: np.ndarray, w: int, columns) -> np.ndarray:
     return np.array(plan, np.int32).reshape(-1, 2)
 
 
+def _candidates(columns) -> list:
+    """S's candidate digits of a sort by `columns` (least significant
+    first), as (column, shift) in pass order (cand_at in csrc/sort.cu): a
+    pair's 8 digits, a lane's 4, the hash key's 8, and for the length
+    (_LEN_MAPPED) the mapped length's 2 then the int32 length's 4, of
+    which the histograms' flag lets only one set vary."""
+    out = []
+    for col in columns:
+        if col == _LEN_MAPPED:
+            out += [(_LEN_MAPPED, 0), (_LEN_MAPPED, 8)] \
+                + [(_LEN_FULL, 8 * b) for b in range(4)]
+        else:
+            nbytes = 8 if col >= _PAIR else _COLUMN_BYTES.get(col, 4)
+            out += [(col, 8 * b) for b in range(nbytes)]
+    return out
+
+
+def _sort_columns(w: int, part: int) -> list:
+    """The sorts of one S call, each its columns: the key path's, or on
+    the hash path the length then the key (the first family), or the key
+    alone."""
+    if part == _KEY_PATH:
+        return [_key_path_columns(w)]
+    return ([[_LEN_MAPPED]] if part == _HASH_FIRST else []) + [[_HASH_KEY]]
+
+
+def _sort_table_plain(hist: torch.Tensor, w: int, part: int) -> torch.Tensor:
+    """Plain PyTorch version of S's plan launch (sort_plan_kernel): the
+    pass table of one call, int32 [candidates, 4] (mode, k, gather, out;
+    see _SKIP), from its histograms (int32 [_hist_size(W)], W = 0 on the
+    hash path).  A candidate varies when its digit has more than one
+    non-empty bin; the mapped length's digits only without the flag, the
+    int32 length's only with it.  Pass k of a sort reads half (k - 1) % 2
+    of the ping-pong buffers (k = 0: the sort's input order) and writes
+    half k % 2; it gathers when it is its column's first varying digit;
+    its output is the sort's result when it is the last varying digit,
+    indices only when the next is another column's, else carried keys and
+    indices."""
+    hist = hist.long()
+    big = bool(hist[-1])
+    nonzero = (hist[:-1].view(-1, 256) != 0).sum(1)
+    table = []
+    for columns in _sort_columns(w, part):
+        cands = _candidates(columns)
+        rows = [[_SKIP, 0, 0, 0] for _ in cands]
+        active = [i for i, (col, shift) in enumerate(cands)
+                  if nonzero[_digit_slot(col, shift, w)] > 1
+                  and not (col == _LEN_MAPPED and big)
+                  and not (col == _LEN_FULL and not big)]
+        for k, i in enumerate(active):
+            col = cands[i][0]
+            gather = k == 0 or cands[active[k - 1]][0] != col
+            if k == len(active) - 1:
+                out = _RESULT
+            else:
+                out = _INDICES if cands[active[k + 1]][0] != col else _CARRY
+            rows[i] = [_PASS, k, int(gather), out]
+        if not active:
+            rows[-1][0] = _COPY
+        table += rows
+    return torch.tensor(table, dtype=torch.int32).view(-1, 4)
+
+
 def _key_column(col: int, words, lengths, keys) -> torch.Tensor:
     """A column of S's keys as int64 holding the unsigned key (a pair and
     the hash key as int64 bits: their bytes are the unsigned key's)."""
@@ -161,8 +244,7 @@ def _sort_hist_plain(words, lengths, keys) -> torch.Tensor:
     """Plain PyTorch version of S's histograms: int32 [_hist_size(W)],
     each digit's 256 bins (of the columns given; words None: W = 0), then
     the flag, 1 when a live length exceeds 2046.  The length's digits are
-    those of the mapped length, and with the flag set also those of the
-    int32 length (left zero without it, as the kernel leaves them)."""
+    those of the mapped length and of the int32 length both."""
     w = 0 if words is None else words.shape[1]
     ref = next(t for t in (words, lengths, keys) if t is not None)
     hist = torch.zeros(_hist_size(w), dtype=torch.int64, device=ref.device)
@@ -171,7 +253,7 @@ def _sort_hist_plain(words, lengths, keys) -> torch.Tensor:
         big = ((lengths != PAD_LENGTH)
                & ((lengths.long() & _U32) > 2046)).any()
         hist[-1] = big.long()
-        cols += [_LEN_MAPPED, _LEN_FULL] if bool(big) else [_LEN_MAPPED]
+        cols += [_LEN_MAPPED, _LEN_FULL]
     if keys is not None:
         cols.append(_HASH_KEY)
     for col in cols:
@@ -219,6 +301,9 @@ def _check_sort_operands(words, lengths, keys=None):
     dev, n = ref.device, ref.shape[0]
     if words is not None:
         _build.check_operand(words, "words", torch.int32, 2, dev)
+        if words.shape[1] > _SORT_MAX_LANES:
+            raise ValueError(f"kernel S sorts rows of at most "
+                             f"{_SORT_MAX_LANES} lanes, not {words.shape[1]}")
     for name, t, dtype in (("lengths", lengths, torch.int32),
                            ("keys", keys, torch.int64)):
         if t is not None:
@@ -230,65 +315,58 @@ def _check_sort_operands(words, lengths, keys=None):
     return dev, n
 
 
-def _sort_hist(words, lengths, keys, n: int):
-    """Kernel S's histogram launch, copied to the host (one small copy a
-    call: the plan is made there), and when the flag says a live length
-    exceeds 2046 a second launch for the int32 length's digits and a
-    second copy.  Returns (histograms on the card, their host copy)."""
-    w = 0 if words is None else words.shape[1]
-    ref = lengths if keys is None else keys
-    hist = torch.zeros(_hist_size(w), dtype=torch.int32, device=ref.device)
-    lens = None if lengths is None else lengths.data_ptr()
-    _build.launch("ssq_sort_hist", None if words is None else words.data_ptr(),
-                  w, lens, 0, None if keys is None else keys.data_ptr(),
-                  hist.data_ptr(), n)
-    host = hist.cpu().numpy()
-    if lens is not None and host[-1]:
-        _build.launch("ssq_sort_hist", None, w, lens, 1, None,
-                      hist.data_ptr(), n)
-        host = hist.cpu().numpy()
-    return hist, host
+#: One S call's outputs on the card (perm, s_hash, order) and views of its
+#: scratch: the histograms (int32 [_hist_size(W)]) and the pass table
+#: (int32 [candidates, 4]) that the plan launch made.
+_SortRun = collections.namedtuple("_SortRun", "perm s_hash order hist table")
 
 
-def _sort_passes(plan, hist, words, lengths, keys, n: int, order=None,
-                 final: bool = True):
-    """Kernel S's digit passes of `plan`, one launch each, from `order`
-    (int32 [N]; None: the input order).  final: returns (perm int64 [N],
-    s_hash int64 [N] or None: the keys in that order when `keys` is
-    given); else the int32 order of the last pass."""
-    dev = hist.device
-    passes = len(plan)
+def _sort_launch(words, lengths, keys, idx_in, part: int, n: int):
+    """Kernel S: one ssq_sort call (csrc/sort.cu) of `part` (_KEY_PATH:
+    words and lengths; _HASH_FIRST: lengths, then keys from their order;
+    _HASH_NEXT: keys from `idx_in`, int32 [N] or None for the input
+    order).  The memset, the histograms, the plan and one pass launch a
+    candidate digit are queued on the current stream; nothing is read
+    back.  Returns a _SortRun: perm (int64 [N]), s_hash (int64 [N] when
+    keys are sorted), order (the _HASH_FIRST call's int32 length
+    order)."""
+    dev = (keys if keys is not None else lengths).device
+    w = words.shape[1] if part == _KEY_PATH else 0
+    cands = sum(len(_candidates(c)) for c in _sort_columns(w, part))
     tile_rows = _build.cuda_lib().ssq_sort_tile_rows()
     if tile_rows != SORT_TILE_ROWS:
         raise RuntimeError(f"kernel S was built with {tile_rows}-row tiles, "
                            f"SORT_TILE_ROWS is {SORT_TILE_ROWS}")
-    tiles = -(-n // SORT_TILE_ROWS)
-    # Zeroed by the entry point: one tile counter a pass, one look-back
-    # state per (tile, bin) shared by every pass (each tags its states
-    # with its own epoch).
-    scratch = torch.empty(passes + tiles * 256, dtype=torch.int64, device=dev)
-    wide = any(col == _HASH_KEY or col >= _PAIR for col, _ in plan.tolist())
+    tiles = -(-n // tile_rows)
+    counter_words = cands + cands % 2
+    hist_words = (_hist_size(w) + 1) // 2
+    # Zeroed by the entry point: a tile counter a candidate, the pass
+    # table, the histograms, one look-back state per (tile, bin) shared by
+    # every pass (each tags its states with its candidate's slot).
+    scratch = torch.empty(counter_words + 2 * cands + hist_words
+                          + tiles * 256, dtype=torch.int64, device=dev)
+    wide = part != _KEY_PATH or w >= 2
     key_buf = torch.empty(2 * n * (2 if wide else 1), dtype=torch.int32,
                           device=dev)
     idx_buf = torch.empty(2 * n, dtype=torch.int32, device=dev)
-    perm = torch.empty(n, dtype=torch.int64, device=dev) if final else None
+    perm = torch.empty(n, dtype=torch.int64, device=dev)
     s_hash = torch.empty(n, dtype=torch.int64, device=dev) \
-        if final and keys is not None else None
-    plan = np.ascontiguousarray(plan, np.int32)
-    _build.launch("ssq_sort_passes", plan.ctypes.data, passes,
-                  None if words is None else words.data_ptr(),
-                  0 if words is None else words.shape[1],
-                  None if lengths is None else lengths.data_ptr(),
+        if keys is not None else None
+    by_length = torch.empty(n, dtype=torch.int32, device=dev) \
+        if part == _HASH_FIRST else None
+    _build.launch("ssq_sort", None if words is None else words.data_ptr(),
+                  w, None if lengths is None else lengths.data_ptr(),
                   None if keys is None else keys.data_ptr(),
-                  None if order is None else order.data_ptr(),
-                  hist.data_ptr(), scratch.data_ptr(), key_buf.data_ptr(),
-                  idx_buf.data_ptr(),
-                  None if perm is None else perm.data_ptr(),
-                  None if s_hash is None else s_hash.data_ptr(), n)
-    if final:
-        return perm, s_hash
-    half = (passes - 1) % 2
-    return idx_buf[half * n:(half + 1) * n]
+                  None if idx_in is None else idx_in.data_ptr(), part,
+                  scratch.data_ptr(), key_buf.data_ptr(), idx_buf.data_ptr(),
+                  perm.data_ptr(),
+                  None if s_hash is None else s_hash.data_ptr(),
+                  None if by_length is None else by_length.data_ptr(), n)
+    table = scratch[counter_words:counter_words + 2 * cands] \
+        .view(torch.int32).view(cands, 4)
+    hist = scratch[counter_words + 2 * cands:][:hist_words] \
+        .view(torch.int32)[:_hist_size(w)]
+    return _SortRun(perm, s_hash, by_length, hist, table)
 
 
 def sort_rows(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -296,22 +374,17 @@ def sort_rows(words: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     lane_{W-1}) with lanes compared as unsigned, lengths as int32, and
     ties in input order.
 
-    Kernel S: a histogram launch, the plan on the host (digits that hold
-    one value left out), then one launch a digit, the last lane pair
-    first, the length last.  A CUDA tensor launches the kernel; a CPU tensor takes
-    the plain version."""
+    Kernel S: a histogram launch, the plan on the card (digits that hold
+    one value skipped), then one launch a candidate digit, the last lane
+    pair first, the length last; no host read.  A CUDA tensor launches the
+    kernel; a CPU tensor takes the plain version."""
     if words.device.type == "cpu":
         return sort_rows_plain(words, lengths)
     dev, n = _check_sort_operands(words, lengths)
     if n == 0:
         return torch.empty(0, dtype=torch.int64, device=dev)
-    w = words.shape[1]
-    hist, host = _sort_hist(words, lengths, None, n)
-    plan = _sort_plan(host, w, _key_path_columns(w))
     sort_rows.launches += 1
-    if len(plan) == 0:
-        return torch.arange(n, dtype=torch.int64, device=dev)
-    return _sort_passes(plan, hist, words, lengths, None, n)[0]
+    return _sort_launch(words, lengths, None, None, _KEY_PATH, n).perm
 
 
 # Every call that launches S counts here: sort_rows and _sort_keys.
@@ -410,30 +483,27 @@ def _sort_keys(keys: torch.Tensor, lengths=None, by_length=None):
     (signed order, which is the unsigned order of (h1, h2)), the keys in
     that order, and the length order it started from.  With `lengths`
     the rows are sorted by (key, length): the length order comes from the
-    same histogram launch and copy, and is returned (int32 on the card;
-    None when every row has one length) for the next hash family, which
-    passes it as `by_length` (None: the input order) and sorts only its
-    keys.  Kernel S on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    same call, and is returned (int32 on the card, where every row having
+    one length gives the identity; None from the plain version then) for
+    the next hash family, which passes it as `by_length` (None: the input
+    order) and sorts only its keys.  Kernel S on a CUDA tensor, with no
+    host read; the plain version on a CPU tensor."""
     if keys.device.type == "cpu":
         return _sort_keys_plain(keys, lengths, by_length)
     _, n = _check_sort_operands(None, lengths, keys)
     if by_length is not None:
         _build.check_operand(by_length, "by_length", torch.int32, 1,
                              keys.device)
-    hist, host = _sort_hist(None, lengths, keys, n)
+    if n == 0:
+        perm = torch.empty(0, dtype=torch.int64, device=keys.device)
+        order = torch.empty(0, dtype=torch.int32, device=keys.device)
+        return keys[:0], perm, order if lengths is not None else by_length
     sort_rows.launches += 1
     if lengths is not None:
-        plan = _sort_plan(host, 0, [_LEN_MAPPED])
-        by_length = None if len(plan) == 0 else _sort_passes(
-            plan, hist, None, lengths, None, n, final=False)
-    plan = _sort_plan(host, 0, [_HASH_KEY])
-    if len(plan) == 0:
-        perm = torch.arange(n, device=keys.device) if by_length is None \
-            else by_length.long()
-        return keys[perm], perm, by_length
-    perm, s_hash = _sort_passes(plan, hist, None, None, keys, n, by_length)
-    return s_hash, perm, by_length
+        run = _sort_launch(None, lengths, keys, None, _HASH_FIRST, n)
+        return run.s_hash, run.perm, run.order
+    run = _sort_launch(None, None, keys, by_length, _HASH_NEXT, n)
+    return run.s_hash, run.perm, by_length
 
 
 def _hash_order_plain(words, lengths, seed: int, by_length=None):
@@ -595,7 +665,8 @@ def unique_count(words: torch.Tensor, lengths: torch.Tensor,
 
     At W > _LEX_SORT_MAX_LANES each hash family's collision word is read
     on the host (one small copy from the card a call) to decide whether
-    to draw the next one.
+    to draw the next one; at most _LEX_SORT_MAX_LANES lanes nothing is
+    read back.
     """
     if words.dim() != 2:
         raise ValueError(f"words must be [N, W], got {tuple(words.shape)}")
