@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils.profiling import scoped
 
 
 def _backend():
@@ -79,6 +80,7 @@ class ShortSeqCounter(dict):
             setter(self, s, get(s, 0) + c)
 
 
+@scoped("ssq.objects")
 def update_counter_from_host_table(counter, words, lengths, counts) -> None:
     """Add a host count table (words `[M, W]` uint32, lengths `[M]` int32,
     counts `[M]` int32/int64) into `counter` - one native call for the
@@ -120,6 +122,7 @@ def update_counter_from_host_table(counter, words, lengths, counts) -> None:
         setter(counter, key, counter.get(key, 0) + count)
 
 
+@scoped("ssq.to_counter")
 def table_to_counter(table) -> ShortSeqCounter:
     """One device count table (words, lengths, counts, n_unique) ->
     reference-identical ShortSeqCounter.  Goes through
@@ -143,7 +146,7 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
     tables are disjoint by length, so the final dict is their union.
     Raises the reference's error on invalid bases."""
     from ..constants import MAX_VAR_NT, TOO_LONG_MSG, UNSUPPORTED_BASE_MSG
-    from ..count.device import count_batch, fetch_table
+    from ..count.device import count_batch, d2h, fetch_table, h2d
     from ..count.ingest import WIDTH_EDGES, bucket_mask
     from ..oracle import first_invalid_char
     from ..ops.bitpack import pack_and_validate_rows
@@ -168,12 +171,12 @@ def count_matrix_device(mat, lengths, device="cuda") -> ShortSeqCounter:
         sub_len = lengths[sel].astype(np.int32)
         words, ok = pack_and_validate_rows(rows.view(np.uint32), sub_len,
                                            device=device)
-        ok = ok.cpu().numpy()
+        ok = d2h(ok).numpy()
         if not ok.all():
             bad_idx = int(np.argmin(ok))
             bad = first_invalid_char(rows[bad_idx][:int(sub_len[bad_idx])])
             raise Exception(f"{UNSUPPORTED_BASE_MSG}: {bad}")
-        table = count_batch(words, torch.from_numpy(sub_len).to(device))
+        table = count_batch(words, h2d(torch.from_numpy(sub_len), device))
         u_w, u_l, u_c, _ = fetch_table(*table)
         update_counter_from_host_table(counts, u_w, u_l, u_c)
     return counts
@@ -203,19 +206,11 @@ def _h2d_chunks(rows: int) -> int:
     return 4
 
 
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host tensor -> `device`: through pinned memory with a non-blocking
-    copy on CUDA (the pinned buffer is held by PyTorch's host allocator
-    until the copy has run)."""
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
 def _put_words(words: np.ndarray, device: torch.device) -> torch.Tensor:
+    from ..count.device import h2d
     from ..ops.lanes import from_numpy_u32
 
-    return _to_device(from_numpy_u32(words), device)
+    return h2d(from_numpy_u32(words), device, pinned=True)
 
 
 def _put_lengths(sub_len, device: torch.device) -> torch.Tensor:
@@ -223,7 +218,7 @@ def _put_lengths(sub_len, device: torch.device) -> torch.Tensor:
     lengths are <= 1024 and PAD_LENGTH maps to -1, so the int16 wire
     format halves the lengths' share of the transfer.  Raises if a live
     length does not fit the wire format."""
-    from ..count.device import PAD_LENGTH
+    from ..count.device import PAD_LENGTH, h2d
 
     sub_len = np.asarray(sub_len)
     live = sub_len != PAD_LENGTH
@@ -232,7 +227,7 @@ def _put_lengths(sub_len, device: torch.device) -> torch.Tensor:
             f"read length {int(sub_len[live].max())} does not fit the "
             f"int16 lengths wire format (max {_MAX_WIRE_LENGTH})")
     l16 = np.where(live, sub_len, -1).astype(np.int16)
-    lens = _to_device(torch.from_numpy(l16), device).to(torch.int32)
+    lens = h2d(torch.from_numpy(l16), device, pinned=True).to(torch.int32)
     return torch.where(lens < 0, PAD_LENGTH, lens)
 
 
@@ -335,6 +330,7 @@ def count_indexed_host(data, starts, lengths) -> ShortSeqCounter | None:
     return None if table is None else table.to_counter()
 
 
+@scoped("ssq.read_count")
 def read_and_count_fastq(filename, engine: str = "auto",
                          device="cuda") -> ShortSeqCounter:
     """End-to-end FASTQ dedup pipeline with the reference's phase-timing
@@ -367,8 +363,9 @@ def _stream_bytes() -> int:
 
 def _read_and_count_table(filename, engine: str, device):
     """Shared engine policy: index the FASTQ, count with the requested
-    engine, return (CountTable, n_reads).  The read-phase seconds are
-    stashed on the table for the reference-style timing print.
+    engine, return (CountTable, n_reads).  The read-phase seconds (the
+    interval of read_fastq_index: its ssq.file_read and ssq.index ranges)
+    are stashed on the table for the reference-style timing print.
 
     Files above the streaming threshold count in byte-range slices
     (record-synced boundaries); plain gzip streams have no random access
@@ -399,9 +396,9 @@ def _read_and_count_table(filename, engine: str, device):
     if size > stream_bytes and _range_shardable():
         return _read_and_count_table_streamed(filename, engine, size,
                                               stream_bytes, device)
-    t1 = time.time()
+    t1 = time.perf_counter()
     data, starts, lengths = read_fastq_index(filename)
-    t2 = time.time()
+    t2 = time.perf_counter()
     table = None
     if engine in ("auto", "host"):
         table = count_indexed_host_table(data, starts, lengths)
@@ -442,10 +439,10 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
     for s in range(n_slices):
         lo = s * size // n_slices
         hi = (s + 1) * size // n_slices
-        t0 = time.time()
+        t0 = time.perf_counter()
         data, starts, lengths = read_fastq_index(filename,
                                                  byte_range=(lo, hi))
-        t_read += time.time() - t0
+        t_read += time.perf_counter() - t0
         n_reads += len(lengths)
         if len(lengths) == 0:
             continue
@@ -484,6 +481,7 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
     return table, n_reads
 
 
+@scoped("ssq.read_count")
 def read_and_count_fastq_table(filename, engine: str = "auto",
                                device="cuda"):
     """Lazy form of read_and_count_fastq: returns a count.table.CountTable

@@ -21,7 +21,8 @@ import torch
 
 from .. import _build
 from ..ops.lanes import from_numpy_u32
-from .device import empty_table, unique_count
+from ..utils.profiling import scoped
+from .device import empty_table, h2d, unique_count
 
 __all__ = ["check_manifest", "completed_shards", "empty_table",
            "file_fingerprint", "load_table", "merge_host_tuples",
@@ -130,6 +131,7 @@ def completed_shards(directory, host: int):
     return out
 
 
+@scoped("ssq.merge")
 def merge_host_tuples(host_tables, n_out: int | None = None, device="cuda"):
     """Merge host (words uint32 [M, W], lengths int32 [M], counts [M])
     tuples exactly: one zero-padded concat + one unique_count on `device`
@@ -157,9 +159,9 @@ def merge_host_tuples(host_tables, n_out: int | None = None, device="cuda"):
         lengths[row:row + len(l)] = l
         counts[row:row + len(l)] = c
         row += len(l)
-    return unique_count(from_numpy_u32(words).to(device),
-                        torch.from_numpy(lengths).to(device),
-                        torch.from_numpy(counts).to(device), n_out=n_out)
+    return unique_count(h2d(from_numpy_u32(words), device),
+                        h2d(torch.from_numpy(lengths), device),
+                        h2d(torch.from_numpy(counts), device), n_out=n_out)
 
 
 def merge_tables(paths, n_out: int | None = None, device="cuda"):

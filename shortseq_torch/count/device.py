@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..utils.profiling import scoped
+from ..utils.profiling import named_scope, scoped
 
 # Sorts after every real length (0..1024).  int32 max keeps it impossible.
 PAD_LENGTH = 2**31 - 1
@@ -693,7 +693,7 @@ def unique_count(words: torch.Tensor, lengths: torch.Tensor,
             by_length)
         *table, collision = group_count(words, lengths, weights, perm, n_out,
                                         s_hash)
-        if not collision:
+        if not int(d2h(collision)):
             return tuple(table)
     # Every family collided: only an input crafted against these constants
     # gets here.  The last family's table, every live count poisoned, so
@@ -711,20 +711,60 @@ def count_batch(words: torch.Tensor, lengths: torch.Tensor):
                                    device=words.device))
 
 
+def h2d(t: torch.Tensor, device, pinned: bool = False) -> torch.Tensor:
+    """Host tensor `t` on `device`, in the ssq.h2d range: with `pinned`,
+    through pinned memory by a non-blocking copy on CUDA (PyTorch's host
+    allocator holds the pinned buffer until the copy has run), else a
+    plain (pageable, blocking) copy.  A copy to a CUDA device adds its
+    bytes to `h2d.bytes` and one to `h2d.copies`; on a CPU device nothing
+    crosses and neither moves."""
+    device = torch.device(device)
+    with named_scope("ssq.h2d"):
+        if device.type != "cuda":
+            return t.to(device)
+        out = (t.pin_memory() if pinned else t).to(device,
+                                                   non_blocking=pinned)
+    h2d.bytes += t.numel() * t.element_size()
+    h2d.copies += 1
+    return out
+
+
+def d2h(t):
+    """Card tensor `t` on the host (`t.cpu()`), in the ssq.d2h range: a
+    blocking read, so the range holds the host's wait for the card's
+    queue as well as the copy.  A copy from a CUDA device adds its bytes
+    to `d2h.bytes` and one to `d2h.copies` (so `.copies` counts the
+    host's syncs); a CPU tensor is returned as it is and moves neither.
+    Anything but a tensor (a count already read) is returned as it is."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    with named_scope("ssq.d2h"):
+        out = t.cpu()
+    if t.is_cuda:
+        d2h.bytes += t.numel() * t.element_size()
+        d2h.copies += 1
+    return out
+
+
+# The count path's copies between the host and a CUDA device, counted as
+# the kernels' wrappers count their launches.
+h2d.bytes = h2d.copies = d2h.bytes = d2h.copies = 0
+
+
 def fetch_table(u_words, u_lengths, u_counts, n_unique):
     """Fetch only the live prefix of a count table to host.
 
     Returns host numpy arrays (words [n, W] uint32, lengths [n] int32,
     counts [n] int32, n).  A table with fewer rows than n_unique (n_out
     too small) raises instead of dropping keys."""
-    n = int(n_unique)
+    n = int(d2h(n_unique))
     total = u_words.shape[0]
     if n > total:
         raise ValueError(
             f"count table overflow: {n} unique keys but only {total} "
             f"output rows (n_out too small)")
-    return (u_words[:n].cpu().numpy().view(np.uint32),
-            u_lengths[:n].cpu().numpy(), u_counts[:n].cpu().numpy(), n)
+    return (d2h(u_words[:n]).numpy().view(np.uint32),
+            d2h(u_lengths[:n]).numpy(), d2h(u_counts[:n]).numpy(), n)
 
 
 def table_to_host(table):
@@ -742,10 +782,10 @@ def table_to_host(table):
 def counts_to_host_scattered(u_words, u_lengths, u_counts):
     """Like counts_to_host for tables whose live rows are NOT contiguous:
     filters by the PAD_LENGTH sentinel instead of slicing a prefix."""
-    lens = u_lengths.cpu().numpy()
+    lens = d2h(u_lengths).numpy()
     live = np.flatnonzero(lens != PAD_LENGTH)
-    return _rows_to_table(u_words.cpu().numpy().view(np.uint32)[live],
-                          lens[live], u_counts.cpu().numpy()[live])
+    return _rows_to_table(d2h(u_words).numpy().view(np.uint32)[live],
+                          lens[live], d2h(u_counts).numpy()[live])
 
 
 def counts_to_host(u_words, u_lengths, u_counts, n_unique):

@@ -96,6 +96,7 @@ def packed_buckets(data, starts, lengths, batch_size: int | None = None,
     """
     from ..count.device import PAD_LENGTH
     from ..io.fastq import gather_pack
+    from ..utils.profiling import named_scope
 
     if isinstance(pad_pow2, str) and pad_pow2 != "quarter":
         raise ValueError(f"unknown pad_pow2 mode {pad_pow2!r}")
@@ -116,7 +117,9 @@ def packed_buckets(data, starts, lengths, batch_size: int | None = None,
         bs = batch_size or len(len_sel)
         for off in range(0, len(len_sel), bs):
             sub_len = len_sel[off:off + bs]
-            words = gather_pack(data, s_sel[off:off + bs], sub_len, width)
+            with named_scope("ssq.gather_pack"):
+                words = gather_pack(data, s_sel[off:off + bs], sub_len,
+                                    width)
             m = len(sub_len)
             if pad_pow2 == "quarter":
                 m_pad = quarter_pow2(m, floor=min_pad)

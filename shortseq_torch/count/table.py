@@ -27,6 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import scoped
+from .device import d2h, h2d
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -47,7 +50,7 @@ class _Bucket:
     @property
     def n_unique(self) -> int:
         if not isinstance(self._n, int):
-            self._n = int(self._n)
+            self._n = int(d2h(self._n))
         return self._n
 
     @property
@@ -161,12 +164,13 @@ class CountTable:
     def __len__(self) -> int:
         return sum(b.n_unique for b in self._buckets)
 
+    @scoped("ssq.table_read")
     def total(self) -> int:
         """Total read count (sum of all counts) without materialization."""
         total = 0
         for b in self._buckets:
             if b.device:
-                s = int(_total(b.counts))
+                s = int(d2h(_total(b.counts)))
                 if s < 0:
                     raise OverflowError(
                         "count total exceeded int32; use to_counter()")
@@ -180,6 +184,7 @@ class CountTable:
                 total += int(cnts.sum())
         return total
 
+    @scoped("ssq.table_read")
     def most_common(self, n: int | None = None):
         """Top-n (ShortSeq, count) pairs by count desc (ties: key asc).
         Fetches and materializes only n rows per bucket; n=None returns
@@ -216,10 +221,10 @@ class CountTable:
                 k = min(b.words.shape[0], n)
                 w, lens, cnts, min_count = _topk_rows(b.words, b.lengths,
                                                       b.counts, k)
-                if int(min_count) < 0:
+                if int(d2h(min_count)) < 0:
                     _raise_poisoned()
-                w = w.cpu().numpy().view(np.uint32)
-                lens, cnts = lens.cpu().numpy(), cnts.cpu().numpy()
+                w = d2h(w).numpy().view(np.uint32)
+                lens, cnts = d2h(lens).numpy(), d2h(cnts).numpy()
                 keep = cnts > 0  # k > live rows pulls in zero-count padding
                 w, lens, cnts = w[keep], lens[keep], cnts[keep]
             rows.extend(_pairs_from_rows(w, lens, cnts))
@@ -227,6 +232,7 @@ class CountTable:
         rows.sort(key=lambda kv: (-kv[1], str(kv[0])))
         return rows if n is None else rows[:n]
 
+    @scoped("ssq.table_read")
     def values(self):
         """All live counts as a host numpy int64 array (order
         unspecified), without materializing a single key object.  Raises
@@ -241,7 +247,7 @@ class CountTable:
                     f"count table overflow: {n} unique keys but only "
                     f"{b.counts.shape[0]} output rows (n_out too small)")
             if b.device:
-                cnts = b.counts[:n].cpu().numpy()
+                cnts = d2h(b.counts[:n]).numpy()
             else:
                 cnts = np.asarray(b.counts)[:n]
             cnts = np.asarray(cnts, np.int64)
@@ -252,7 +258,11 @@ class CountTable:
 
     # -- lookups --------------------------------------------------------
 
+    @scoped("ssq.table_read")
     def get(self, key, default=0):
+        return self._get(key, default)
+
+    def _get(self, key, default):
         from ..ops.lanes import from_numpy_u32
 
         q = _key_to_rows(key)
@@ -272,9 +282,10 @@ class CountTable:
             if any(int(x) for x in lanes[width:]):
                 continue  # key has live lanes beyond this bucket's width
             if b.device:
-                c = int(_lookup(b.words, b.lengths, b.counts,
-                                from_numpy_u32(q_words).to(b.words.device),
-                                q_len))
+                c = int(d2h(_lookup(b.words, b.lengths, b.counts,
+                                    h2d(from_numpy_u32(q_words),
+                                        b.words.device),
+                                    q_len)))
             else:
                 hit = (np.asarray(b.lengths) == q_len) & (
                     np.asarray(b.words) == q_words[None, :]).all(axis=1)
@@ -286,17 +297,20 @@ class CountTable:
                 found = True
         return total if found else default
 
+    @scoped("ssq.table_read")
     def __contains__(self, key) -> bool:
-        return self.get(key, None) is not None
+        return self._get(key, None) is not None
 
+    @scoped("ssq.table_read")
     def __getitem__(self, key) -> int:
-        c = self.get(key, None)
+        c = self._get(key, None)
         if c is None:
             raise KeyError(key)
         return c
 
     # -- materialization -------------------------------------------------
 
+    @scoped("ssq.to_counter")
     def to_counter(self):
         """Full reference-identical ShortSeqCounter (materializes every
         unique sequence as a Python object - the expensive path this

@@ -223,9 +223,19 @@ def read_fastq_index(filename, byte_range=None):
     native indexer when built; numpy otherwise.  byte_range restricts to
     records starting inside [lo, hi), reading only that slice (+ sync
     margin) from disk."""
+    from ..utils.profiling import named_scope
+
+    with named_scope("ssq.file_read"):
+        data, rng = _read_for_range(filename, byte_range)
+    with named_scope("ssq.index"):
+        return _index_buffer(data, rng)
+
+
+def _index_buffer(data: bytes, rng):
+    """read_fastq_index's index of the bytes read: natively when built,
+    else numpy (records synced to `rng` first, when given)."""
     from .native import fastq_index_native
 
-    data, rng = _read_for_range(filename, byte_range)
     native = fastq_index_native(data, rng)
     if native is not None:
         return native

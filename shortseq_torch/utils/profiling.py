@@ -1,12 +1,43 @@
 """Phase timing for the reference-style timing print (reference
-counter.pyx:62-70), named profiler ranges around the kernels' wrappers,
-and a trace context, from shortseq_tpu/utils/profiling.py.
+counter.pyx:62-70), named profiler ranges around the kernels' wrappers
+and the count path's host stages, and a trace context, from
+shortseq_tpu/utils/profiling.py.
 
 The JAX package names its kernels with jax.named_scope so that XLA traces
 show them; here a named range is a torch.profiler.record_function, which
 torch.profiler traces (and TensorBoard or chrome://tracing shows) with
 each kernel's launch inside it.  The kernels' wrappers take theirs through
-the `scoped` decorator."""
+the `scoped` decorator.  A range opens only while a profiler records, so
+with none it costs one flag read.
+
+The FASTQ count path marks its host stages too, so that every gap in the
+card's timeline falls inside a range that says what the host was doing.
+One library call is one tree under its root:
+
+  ssq.read_count    read_and_count_fastq(_table): the root of one call
+    ssq.file_read   the file's bytes into memory (one a streamed slice)
+    ssq.index       the line index of those bytes
+    ssq.gather_pack host gather + 2-bit pack + validate, one a bucket
+    ssq.h2d         a copy to the card (count/device.py h2d)
+    ssq.unique_count  the sort and group count (kernels S, D, I)
+    ssq.d2h         a blocking read of a card tensor (count/device.py
+                    d2h): the host's wait for the card's queue and the
+                    copy
+    ssq.merge       the streamed path's merge of its slices' tables
+  ssq.to_counter    CountTable.to_counter / table_to_counter: the dict
+    ssq.objects     the ShortSeq objects and the dict's inserts
+  ssq.table_read    CountTable's lazy reads (most_common, total, get,
+                    values, `in`, `[]`)
+
+ssq.h2d and ssq.d2h open wherever a copy is made (on a CPU device too,
+where nothing crosses); ssq.to_counter is a root of its own when called
+on a table.  A range of one name never holds another of that name.
+`trace(log_dir)` around a pipeline call records them beside the kernels
+and copies.  The bytes and the number of copies that cross between the
+host and a CUDA device are counted on the helpers themselves:
+`count.device.h2d.bytes` / `.copies` and `count.device.d2h.bytes` /
+`.copies` (every d2h copy blocks, so its `.copies` counts the host's
+syncs)."""
 
 from __future__ import annotations
 

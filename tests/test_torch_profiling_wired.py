@@ -1,11 +1,13 @@
 """shortseq_torch's profiler ranges are wired into its kernels' wrappers,
 under the names the JAX package's jax.named_scope gives them
-(tests/test_profiling_wired.py pins those in the lowered HLO): under
-torch.profiler every wrapper's call shows its ssq.* range, on either
-route (here the plain versions on the CPU; on the card chip_smoke checks
-that each kernel's launch falls inside its range).  With no profiler
-active named_scope records nothing, and it never swallows the block's
-exception.  utils.trace writes a Chrome/TensorBoard trace file."""
+(tests/test_profiling_wired.py pins those in the lowered HLO), and into
+the FASTQ count path's host stages (tests/test_torch_spans.py checks
+their tree): under torch.profiler every wrapper's call shows its ssq.*
+range, on either route (here the plain versions on the CPU; on the card
+chip_smoke checks that each kernel's launch falls inside its range).
+With no profiler active named_scope records nothing, and it never
+swallows the block's exception.  utils.trace writes a Chrome/TensorBoard
+trace file."""
 
 import gzip
 import json
@@ -29,7 +31,11 @@ def _rows():
                                                     dtype=torch.int32)
 
 
-def _call(scope):
+def _call(scope, tmp_path):
+    import shortseq_torch as st
+    from shortseq_torch.api.counter import table_to_counter
+    from shortseq_torch.count import CountTable
+    from shortseq_torch.count.checkpoint import merge_host_tuples
     from shortseq_torch.count.device import unique_count
     from shortseq_torch.dist import count as dc
     from shortseq_torch.dist import data_mesh
@@ -38,6 +44,14 @@ def _call(scope):
     lanes, words, lens = _rows()
     ones = torch.ones(6, dtype=torch.int32)
     mesh = data_mesh(device="cpu")
+    fastq = tmp_path / "reads.fastq"
+    fastq.write_text("@a\nACGT\n+\nIIII\n" * 3 + "@b\nGG\n+\nII\n")
+
+    def count():
+        return st.read_and_count_fastq_table(str(fastq), engine="device",
+                                             device="cpu")
+
+    host = (words.numpy().view(np.uint32), lens.numpy(), ones.numpy())
     return {
         "ssq.pack_validate": lambda: bitpack.pack_and_validate_u32(lanes,
                                                                    lens),
@@ -52,17 +66,35 @@ def _call(scope):
                                                               ones),
         "ssq.bucket_exchange": lambda: dc.count_sharded_bucketed(mesh)(
             words, lens, ones),
+        **dict.fromkeys(("ssq.read_count", "ssq.file_read", "ssq.index",
+                         "ssq.gather_pack", "ssq.h2d", "ssq.d2h"), count),
+        "ssq.merge": lambda: merge_host_tuples([host, host], device="cpu"),
+        **dict.fromkeys(("ssq.to_counter", "ssq.objects"),
+                        lambda: table_to_counter(unique_count(words, lens,
+                                                              ones))),
+        "ssq.table_read": lambda: CountTable.from_device_tables(
+            [unique_count(words, lens, ones)]).total(),
     }[scope]
+
+
+#: The ranges one whole-file call of a one-bucket FASTQ enters, in order.
+COUNT_PATH = ["ssq.read_count", "ssq.file_read", "ssq.index",
+              "ssq.gather_pack", "ssq.h2d", "ssq.h2d", "ssq.unique_count",
+              "ssq.d2h"]
 
 
 SCOPES = ["ssq.pack_validate", "ssq.pack", "ssq.unpack", "ssq.hamming_rows",
           "ssq.pairwise_jnp", "ssq.pairwise_mxu", "ssq.unique_count",
-          "ssq.merge_allgather", "ssq.bucket_exchange"]
+          "ssq.merge_allgather", "ssq.bucket_exchange",
+          # the count path's host stages (utils/profiling.py)
+          "ssq.read_count", "ssq.file_read", "ssq.index", "ssq.gather_pack",
+          "ssq.h2d", "ssq.d2h", "ssq.merge", "ssq.to_counter",
+          "ssq.objects", "ssq.table_read"]
 
 
 @pytest.mark.parametrize("scope", SCOPES)
-def test_scope_shows_under_the_profiler(scope):
-    fn = _call(scope)
+def test_scope_shows_under_the_profiler(scope, tmp_path):
+    fn = _call(scope, tmp_path)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
     names = {e.key for e in prof.key_averages()}
@@ -70,7 +102,7 @@ def test_scope_shows_under_the_profiler(scope):
     assert not {s for s in names if s.startswith("ssq.")} - set(SCOPES)
 
 
-def test_no_profiler_records_nothing(monkeypatch):
+def test_no_profiler_records_nothing(monkeypatch, tmp_path):
     entered = []
 
     class Spy:
@@ -83,7 +115,7 @@ def test_no_profiler_records_nothing(monkeypatch):
         def __exit__(self, *exc):
             return False
 
-    calls = {scope: _call(scope) for scope in SCOPES}
+    calls = {scope: _call(scope, tmp_path) for scope in SCOPES}
     monkeypatch.setattr(torch.profiler, "record_function", Spy)
     for fn in calls.values():
         fn()
@@ -91,6 +123,10 @@ def test_no_profiler_records_nothing(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         calls["ssq.unique_count"]()
     assert entered == ["ssq.unique_count"]
+    entered.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        calls["ssq.read_count"]()
+    assert entered == COUNT_PATH
 
 
 @pytest.mark.parametrize("profiled", [False, True])
