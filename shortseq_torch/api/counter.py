@@ -416,7 +416,9 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
                                    stream_bytes: int, device):
     """Bounded-memory ingest: index+gather+count one byte-range slice at
     a time (record-synced boundaries, io.fastq.fastq_sync), keep only each
-    slice's compact unique table, and merge once at the end.
+    slice's compact unique table, and merge once at the end.  A plain
+    file's slices are read, one after another, into one host buffer of
+    the call (io.fastq.slice_buffer) and indexed where they lie there.
 
     Host engine: per-slice native hash counts, merged with ONE weighted
     native count over the concatenated unique rows (csrc
@@ -425,7 +427,8 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
     `device` (count/checkpoint.merge_host_tuples)."""
     from ..count.ingest import packed_buckets
     from ..count.table import CountTable
-    from ..io.fastq import read_fastq_index
+    from ..io.fastq import _is_gzip, read_fastq_index, read_fastq_slice, \
+        slice_buffer, slice_buffer_bytes
     from ..io.native import get_lib, host_count_native, \
         host_count_weighted_native
 
@@ -433,6 +436,9 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
     if engine == "host" and get_lib() is None:
         raise RuntimeError("engine='host' requires the native library (g++)")
     n_slices = -(-size // stream_bytes)
+    # BGZF slices are decompressed into bytes of their own.
+    in_buffer = not _is_gzip(filename)
+    buf = None
     by_width: dict[int, list] = {}
     t_read = 0.0
     n_reads = 0
@@ -440,8 +446,12 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
         lo = s * size // n_slices
         hi = (s + 1) * size // n_slices
         t0 = time.perf_counter()
-        data, starts, lengths = read_fastq_index(filename,
-                                                 byte_range=(lo, hi))
+        if in_buffer:
+            buf = slice_buffer(buf, slice_buffer_bytes(size, n_slices))
+            data, starts, lengths = read_fastq_slice(filename, (lo, hi), buf)
+        else:
+            data, starts, lengths = read_fastq_index(filename,
+                                                     byte_range=(lo, hi))
         t_read += time.perf_counter() - t0
         n_reads += len(lengths)
         if len(lengths) == 0:
@@ -460,6 +470,7 @@ def _read_and_count_table_streamed(filename, engine: str, size: int,
                 by_width.setdefault(b.width, []).append(table_to_host(
                     (b.words, b.lengths, b.counts, b._n)))
         del data, starts, lengths  # one slice buffer at a time
+    data = buf = None  # every slice is counted: free the buffer
     if use_host:
         tables = []
         for width, parts in sorted(by_width.items()):

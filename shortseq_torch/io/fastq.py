@@ -7,7 +7,9 @@ Three consumers:
   * read_fastq_index + gather_pack -> packed uint32 lanes straight from
     the file buffer (the count path: fused native gather + 2-bit pack +
     bloom validate, count/ingest.packed_buckets).  `byte_range` reads
-    one record-synced slice of a plain or BGZF file (the streamed count).
+    one record-synced slice of a plain or BGZF file; the streamed count
+    reads a plain file's slices into one host buffer with
+    read_fastq_slice, indexed where they lie.
   * read_fastq_matrix -> PAD_BYTE-padded uint8 matrix + lengths, for
     reads that go to the device as ASCII (UMI dedup, count_matrix_device).
 
@@ -82,22 +84,76 @@ def _read_range_synced(filename, lo: int, hi: int):
     before `lo`, so every slice computes the exact same boundary as a
     full-file scan would; the trailing margin bounds how far past `hi` the
     first record start may be."""
-    import os
-
     if _is_gzip(filename):
         raise ValueError(_GZIP_SHARD_MSG)
+    base, read_hi = _range_bounds(filename, lo, hi)
+    with open(filename, "rb") as f:
+        _advise_sequential(f)
+        f.seek(base)
+        return f.read(read_hi - base), base
+
+
+def _range_bounds(filename, lo: int, hi: int):
+    """[base, read_hi): the bytes _read_range_synced reads for [lo, hi)."""
+    import os
+
     if hi < lo:
         # An inverted range would make f.read(read_hi - base) negative,
         # i.e. read-to-EOF: the whole file tail instead of an error.
         raise ValueError(f"inverted byte_range: lo {lo} > hi {hi}")
     size = os.path.getsize(filename)
     lo = max(0, min(lo, size))
-    base = max(0, lo - 1)
-    read_hi = min(size, max(hi, lo) + _SYNC_MARGIN)
-    with open(filename, "rb") as f:
-        _advise_sequential(f)
-        f.seek(base)
-        return f.read(read_hi - base), base
+    return max(0, lo - 1), min(size, max(hi, lo) + _SYNC_MARGIN)
+
+
+def slice_buffer(buf, nbytes: int) -> np.ndarray:
+    """The host buffer a streamed call reads its next plain-file slice
+    into: `buf` where it holds `nbytes`, else a new uninitialised one.
+    Counts the slices read into a buffer already there in
+    `slice_buffer.reuses`, those that needed a new one in `.allocs`."""
+    if buf is not None and len(buf) >= nbytes:
+        slice_buffer.reuses += 1
+        return buf
+    slice_buffer.allocs += 1
+    return np.empty(nbytes, np.uint8)
+
+
+slice_buffer.allocs = slice_buffer.reuses = 0
+
+
+def slice_buffer_bytes(size: int, n_slices: int) -> int:
+    """The most bytes _read_range_synced reads for one of `n_slices`
+    equal slices of a `size`-byte file: the slice, its leading byte and
+    its sync margin."""
+    return min(size, -(-size // n_slices) + 1 + _SYNC_MARGIN)
+
+
+def read_fastq_slice(filename, byte_range, buf: np.ndarray):
+    """read_fastq_index(filename, byte_range) of a plain file, read into
+    the host buffer `buf` (slice_buffer; it must hold slice_buffer_bytes)
+    and indexed where it lies: (buf up to the slice's synced end, starts
+    relative to buf, lengths), the same records as read_fastq_index's.
+    Without the native library the index is read_fastq_index's own, of
+    a copy of the synced records."""
+    from ..utils.profiling import named_scope
+    from .native import fastq_index_in_place
+
+    lo, hi = byte_range
+    with named_scope("ssq.file_read"):
+        base, read_hi = _range_bounds(filename, lo, hi)
+        if read_hi - base > len(buf):
+            raise ValueError(f"slice of {read_hi - base} bytes does not fit "
+                             f"a buffer of {len(buf)}")
+        with open(filename, "rb") as f:
+            _advise_sequential(f)
+            f.seek(base)
+            n = f.readinto(memoryview(buf)[:read_hi - base])
+    rng = (lo - base, hi - base)
+    with named_scope("ssq.index"):
+        native = fastq_index_in_place(buf, n, rng)
+        if native is not None:
+            return native
+        return _index_buffer(bytes(buf[:n]), rng)
 
 
 def fastq_sync(data: bytes, offset: int) -> int:

@@ -75,6 +75,35 @@ def _as_ptr(arr, ctype):
     return arr.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+def _chars(data):
+    """`data` as the library's `const char*`: bytes as they are, a uint8
+    numpy buffer by its address (the caller keeps it alive)."""
+    if isinstance(data, np.ndarray):
+        return ctypes.c_char_p(data.ctypes.data)
+    return data
+
+
+def _index_records(lib, buf, n: int):
+    """(starts int64, lengths int32) of every sequence line in the `n`
+    bytes at `buf` (bytes or a `const char*`), relative to `buf`."""
+    if n == 0:
+        return np.zeros(0, np.int64), np.zeros(0, np.int32)
+    # One record per 4 lines, plus slack for the parallel indexer's
+    # per-span rounding on malformed files; an overflow reports the exact
+    # count and is retried once with it.
+    cap = lib.ssq_count_lines(buf, n) // 4 + 130
+    for _ in range(2):
+        starts = np.empty(cap, dtype=np.int64)
+        lengths = np.empty(cap, dtype=np.int32)
+        n_reads = lib.ssq_fastq_index(
+            buf, n, _as_ptr(starts, ctypes.c_int64),
+            _as_ptr(lengths, ctypes.c_int32), cap)
+        if n_reads >= 0:
+            return starts[:n_reads], lengths[:n_reads]
+        cap = -n_reads
+    raise RuntimeError("fastq index capacity unstable")
+
+
 def fastq_index_native(data: bytes,
                        byte_range: tuple[int, int] | None = None):
     """Index a FASTQ byte buffer: (synced data, starts int64, lengths int32)
@@ -82,41 +111,46 @@ def fastq_index_native(data: bytes,
     the native library is missing.
 
     byte_range (lo, hi) restricts parsing to the records whose boundaries
-    ssq_fastq_sync finds inside [lo, hi) (the streamed ingest's slices).
+    ssq_fastq_sync finds inside [lo, hi), returned as bytes of their own.
     """
     lib = get_lib()
     if lib is None:
         return None
-    n = len(data)
     if byte_range is not None:
+        n = len(data)
         lo = lib.ssq_fastq_sync(data, n, byte_range[0])
         hi = lib.ssq_fastq_sync(data, n, byte_range[1])
         data = data[lo:hi]
-        n = len(data)
-    if n == 0:
-        return data, np.zeros(0, np.int64), np.zeros(0, np.int32)
-    # One record per 4 lines, plus slack for the parallel indexer's
-    # per-span rounding on malformed files; an overflow reports the exact
-    # count and is retried once with it.
-    cap = lib.ssq_count_lines(data, n) // 4 + 130
-    for _ in range(2):
-        starts = np.empty(cap, dtype=np.int64)
-        lengths = np.empty(cap, dtype=np.int32)
-        n_reads = lib.ssq_fastq_index(
-            data, n, _as_ptr(starts, ctypes.c_int64),
-            _as_ptr(lengths, ctypes.c_int32), cap)
-        if n_reads >= 0:
-            return data, starts[:n_reads], lengths[:n_reads]
-        cap = -n_reads
-    raise RuntimeError("fastq index capacity unstable")
+    return (data, *_index_records(lib, data, len(data)))
+
+
+def fastq_index_in_place(buf: np.ndarray, n: int,
+                         byte_range: tuple[int, int]):
+    """fastq_index_native's byte_range index of the first `n` bytes of a
+    uint8 host buffer, made where the records lie: (buf up to the synced
+    end, starts relative to buf, lengths).  Nothing past `n` is read, so
+    bytes left in the buffer by an earlier, longer slice never count.
+    Returns None when the native library is missing."""
+    if buf.dtype != np.uint8 or not buf.flags.c_contiguous \
+            or not 0 <= n <= buf.size:
+        raise ValueError(f"{n} bytes of a {buf.dtype} buffer of {buf.size}")
+    lib = get_lib()
+    if lib is None:
+        return None
+    lo = lib.ssq_fastq_sync(_chars(buf), n, byte_range[0])
+    hi = lib.ssq_fastq_sync(_chars(buf), n, byte_range[1])
+    starts, lengths = _index_records(lib, _chars(buf[lo:]), hi - lo)
+    starts += lo
+    return buf[:hi], starts, lengths
 
 
 def gather_pack_native(data: bytes, starts: np.ndarray, lengths: np.ndarray,
                        width: int):
-    """Gather + 2-bit pack indexed rows straight from the file buffer:
-    [N] (starts, lengths) -> [N, width//16] uint32 in the reference bit
-    layout, zero-padded past each length (rows longer than width are
-    truncated - callers bucket by width first).  Returns None when the
+    """Gather + 2-bit pack indexed rows straight from the file buffer
+    (bytes, or a uint8 numpy buffer): [N] (starts, lengths) ->
+    [N, width//16] uint32 in the reference bit layout, zero-padded past
+    each length (rows longer than width are truncated - callers bucket by
+    width first).  Returns None when the
     native library is missing; raises the reference's invalid-base message
     with the offending character."""
     lib = get_lib()
@@ -128,7 +162,7 @@ def gather_pack_native(data: bytes, starts: np.ndarray, lengths: np.ndarray,
     lengths = np.ascontiguousarray(lengths, dtype=np.int32)
     words = np.empty((n, width // 16), dtype=np.uint32)
     bad = lib.ssq_gather_pack(
-        data, _as_ptr(starts, ctypes.c_int64),
+        _chars(data), _as_ptr(starts, ctypes.c_int64),
         _as_ptr(lengths, ctypes.c_int32), n, width,
         _as_ptr(words, ctypes.c_uint32))
     if bad:
