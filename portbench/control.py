@@ -11,7 +11,9 @@ program's place: reads grouped by their length and a 32-bit hash of
 their lanes (each group keyed by its first read) and counts wrapped to
 int16, as a tempting shortcut would.  It stands in for the program
 behind the entry's own call (`ControlProgram`), so the entry reads and
-judges it exactly as it does the program.
+judges it exactly as it does the program.  An entry whose call this
+control cannot serve brings its own: its `control_program()` returns the
+object put in the program's place.
 
 On the card by default; the benchmark's own runs never run this.
 """
@@ -164,6 +166,8 @@ def readings(bench, cell, seeds, device="cuda"):
     _, config = bench.config(cell["config"])
     mix = bench.mix(cell["traffic"])
     entry = bench.entry(mix["entry"])
+    low = entry.control_program() if hasattr(entry, "control_program") \
+        else ControlProgram
     out = []
     with harness.environment(mix.get("env", {})), \
             tempfile.TemporaryDirectory(prefix="portbench-") as d:
@@ -173,7 +177,7 @@ def readings(bench, cell, seeds, device="cuda"):
             traffic.write(config["library"], seed, fastq)
             ref = ref_count.count_fastq(fastq, device)
             numbers = []
-            for program in (st, ControlProgram):
+            for program in (st, low):
                 sp = spans_mod.Spans()
                 sp.new_call()
                 with contextlib.redirect_stdout(io.StringIO()):

@@ -3,25 +3,13 @@ slices that the program read into a host buffer its call already held
 (its io.fastq slice_buffer's .reuses), of all the slices it read into one
 (.allocs + .reuses), over the window."""
 
-import importlib
+import program_ranges
 
 #: The module whose slice_buffer carries the counters.
 MODULE = "shortseq_torch.io.fastq"
 
-
-def _counter(attr: str):
-    """The harness's name of slice_buffer's counter `attr`, or None where
-    the program has no such counter."""
-    try:
-        mod = importlib.import_module(MODULE)
-    except ImportError:
-        return None
-    if not hasattr(getattr(mod, "slice_buffer", None), attr):
-        return None
-    return f"{MODULE}:slice_buffer.{attr}"
-
-
-ALLOCS, REUSES = _counter("allocs"), _counter("reuses")
+ALLOCS, REUSES = (program_ranges.counter("slice_buffer", a, module=MODULE)
+                  for a in ("allocs", "reuses"))
 COUNTERS = (ALLOCS, REUSES) if ALLOCS and REUSES else ()
 
 

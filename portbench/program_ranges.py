@@ -16,7 +16,8 @@ import tracefile
 
 #: The program's range names start so (utils/profiling.py in the program).
 PREFIX = "ssq."
-#: The module whose h2d and d2h helpers carry the transfer counters.
+#: The module whose h2d and d2h helpers carry the transfer counters (the
+#: default module of `counter`).
 TRANSFERS = "shortseq_torch.count.device"
 
 
@@ -74,16 +75,17 @@ def self_share(run, name: str):
     return 100 * (_length(own) - _overlap(own, others)) / tr.window_us
 
 
-def counter(helper: str, attr: str):
-    """The harness's name ("module:helper.attr") of a transfer counter, or
-    None where the program has no such counter."""
+def counter(helper: str, attr: str, module: str = TRANSFERS):
+    """The harness's name ("module:helper.attr") of the counter `attr` of
+    `helper` in the program's `module`, or None where the program has no
+    such counter."""
     try:
-        mod = importlib.import_module(TRANSFERS)
+        mod = importlib.import_module(module)
     except ImportError:
         return None
     if not hasattr(getattr(mod, helper, None), attr):
         return None
-    return f"{TRANSFERS}:{helper}.{attr}"
+    return f"{module}:{helper}.{attr}"
 
 
 def per_read(run, spec):

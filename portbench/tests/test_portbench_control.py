@@ -16,15 +16,21 @@ from reference import count as ref
 from test_portbench_reference import fastq
 
 
-@pytest.mark.parametrize("name", CELLS)
-def test_control_fails_and_program_passes(tiny, name):
-    for c in tiny.manifest["configs"]:
-        path = tiny.root / c["file"]
+def wrapping_libraries(bench):
+    """Every library of `bench` cut to three 15-nt molecules in 70,000
+    reads, on which the default control fails."""
+    for c in bench.manifest["configs"]:
+        path = bench.root / c["file"]
         cfg = json.loads(path.read_text())
         lo = cfg["library"]["length_min"]
         cfg["library"].update(reads=70_000, molecules=3, zipf_s=1.2,
                               length_min=lo, length_max=lo)
         path.write_text(json.dumps(cfg))
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_control_fails_and_program_passes(tiny, name):
+    wrapping_libraries(tiny)
     entry = tiny.entry(tiny.mix(tiny.cell(name)["traffic"])["entry"])
     rows = control.readings(tiny, tiny.cell(name), [1, 2, 3], device="cpu")
     for seed, mine, theirs in rows:
@@ -32,6 +38,28 @@ def test_control_fails_and_program_passes(tiny, name):
         assert all(mine[k] <= entry.LIMITS[k] for k in mine), (seed, mine)
         assert any(theirs[k] > entry.LIMITS[k] for k in theirs), (seed,
                                                                   theirs)
+
+
+OWN_CONTROL = """
+
+def control_program():
+    import shortseq_torch
+
+    return shortseq_torch
+"""
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_an_entry_brings_its_own_control(tiny, name):
+    # The entry's control_program() is put in the program's place: here
+    # the program itself, which reads 0 where the default control fails.
+    wrapping_libraries(tiny)
+    entry = tiny.here / "entries" / (
+        tiny.mix(tiny.cell(name)["traffic"])["entry"] + ".py")
+    entry.write_text(entry.read_text() + OWN_CONTROL)
+    rows = control.readings(tiny, tiny.cell(name), [1], device="cpu")
+    for seed, mine, theirs in rows:
+        assert theirs == mine and not any(mine.values()), (seed, theirs)
 
 
 def test_control_wraps_counts_to_int16(tmp_path):

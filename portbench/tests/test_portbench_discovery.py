@@ -88,6 +88,9 @@ def test_new_files_found_by_name(tiny, tmp_path):
                          "reduced": [], "why": "test"})
     m["workloads"].append({"name": "extra-1k.total", "config": "extra_1k",
                            "traffic": "extra", "chips": 1, "why": "test"})
+    # The rate is end to end only in the cells it lists.
+    rate = next(x for x in m["end_to_end"] if x["name"] == "reads_per_s")
+    rate["workloads"].append("extra-1k.total")
     m["per_layer"].append({"name": "extra.calls", "unit": "calls",
                            "better": "higher", "source": "host_clock",
                            "layer": "Count API", "moves": "reads_per_s",

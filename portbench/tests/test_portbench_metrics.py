@@ -18,11 +18,12 @@ def bench():
     return Bench()
 
 
-def test_rate_counts_finished_reads_over_the_whole_window(bench):
+@pytest.mark.parametrize("name", ["reads_per_s", "reads_per_s.counter"])
+def test_rate_counts_finished_reads_over_the_whole_window(bench, name):
     run = types.SimpleNamespace(calls=[call(1.0), call(1.0, ok=False),
                                        call(1.0)],
                                 reads=1000, window_s=4.0)
-    assert bench.reader("reads_per_s").read(run) == 500.0
+    assert bench.reader(name).read(run) == 500.0
 
 
 def test_span_shares(bench):

@@ -107,8 +107,17 @@ def test_copies_checked_against_the_trace():
         "Memcpy DtoH": "shortseq_torch.count.device:d2h.copies"}
 
 
-def test_no_counter_where_the_program_has_none(monkeypatch):
+def test_no_counter_where_the_program_has_none():
     assert program_ranges.counter("h2d", "nothing") is None
     assert program_ranges.counter("no_helper", "bytes") is None
-    monkeypatch.setattr(program_ranges, "TRANSFERS", "no_such_module")
-    assert program_ranges.counter("h2d", "bytes") is None
+    assert program_ranges.counter("h2d", "bytes",
+                                  module="no_such_module") is None
+
+
+def test_counter_of_another_module():
+    fastq = "shortseq_torch.io.fastq"
+    assert program_ranges.counter("slice_buffer", "reuses", module=fastq) \
+        == f"{fastq}:slice_buffer.reuses"
+    assert program_ranges.counter("slice_buffer", "reuses") is None
+    assert program_ranges.counter("slice_buffer", "nothing",
+                                  module=fastq) is None

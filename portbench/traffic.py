@@ -9,10 +9,27 @@ Parameters of the `library` block:
                of N molecules (PCR duplicate families)
   zipf_s       with molecules: family sizes in Zipf(s) proportions by rank
 
+A UMI-tagged library (absent or 0, these keys leave the draws and the
+file as without them; set, it needs `molecules`, `inserts` and `umi_3p`
+all > 0):
+  inserts                the molecules' inserts come from a pool of K
+                         distinct sequences, insert j (by rank) holding a
+                         Zipf(insert_zipf_s) share of the molecules
+  insert_zipf_s          the Zipf exponent of those shares
+  umi_3p                 each molecule carries a UMI of that many random
+                         bases at the 3' end: a read is insert + UMI
+                         (length_min and length_max stay the insert's)
+  umi_substitution_rate  each base of each read's UMI is replaced, with
+                         this probability, by one of the other three,
+                         uniformly; inserts are copied exactly
+
 Lengths are a fixed multiset (each length of [min, max] in equal shares,
 the remainder to the shortest) in an order drawn from the seed, and
-Zipf families are fixed by largest remainder: every seed gives the same
-sizes, and the seed moves only the bases and the order.
+Zipf families and insert groups are fixed by largest remainder: every
+seed gives the same sizes, and the seed moves only the bases and the
+order.  A UMI library's substitutions are drawn last, as the file is
+written: at one seed, libraries that differ only in the rate hold the
+same molecules in the same order.
 
 Run as a program (the harness starts it in a child process, so that its
 arrays stay out of the measuring process):
@@ -88,6 +105,11 @@ def write_records(path, lengths, rows, chunk=1 << 20):
         os.fsync(f.fileno())
 
 
+#: The library keys of a UMI-tagged library.
+UMI_KEYS = ("inserts", "insert_zipf_s", "umi_3p",
+            "umi_substitution_rate")
+
+
 def library(spec: dict, seed: int):
     """(lengths int64, rows) of the library `spec` at `seed`, for
     write_records."""
@@ -95,6 +117,8 @@ def library(spec: dict, seed: int):
     n = int(spec["reads"])
     lo, hi = int(spec["length_min"]), int(spec["length_max"])
     n_mol = int(spec.get("molecules") or 0)
+    if any(spec.get(k) for k in UMI_KEYS):
+        return umi_library(spec, rng, n, lo, hi, n_mol)
     if n_mol <= 0:
         def fresh(length, idx):
             return ALPHABET[rng.integers(0, 4, size=(len(idx), length),
@@ -118,6 +142,68 @@ def library(spec: dict, seed: int):
         return pools[length][row_of[pick[idx]]]
 
     return mol_len[pick], copies
+
+
+def distinct_pool(rng, n: int, lo: int, hi: int):
+    """n distinct random sequences, as base codes 0-3: ({length: [count,
+    length] uint8 table}, length of each sequence, its row in its length's
+    table).  Sequence j is lo + j % (hi - lo + 1) long for every seed, so
+    that the lengths of the groups they head are fixed too.  A repeated
+    sequence is drawn again."""
+    seq_len = lo + np.arange(n, dtype=np.int64) % (hi - lo + 1)
+    pools, row_of = {}, np.empty(n, np.int64)
+    for length in map(int, np.unique(seq_len)):
+        mine = np.flatnonzero(seq_len == length)
+        if len(mine) > 4 ** length:
+            raise ValueError(f"{len(mine)} distinct sequences of {length} "
+                             f"nt do not exist")
+        row_of[mine] = np.arange(len(mine))
+        table = rng.integers(0, 4, size=(len(mine), length), dtype=np.uint8)
+        while True:
+            _, first = np.unique(table.view(np.dtype((np.void, length))),
+                                 return_index=True)
+            again = np.setdiff1d(np.arange(len(mine)), first)
+            if not again.size:
+                break
+            table[again] = rng.integers(0, 4, size=(again.size, length),
+                                        dtype=np.uint8)
+        pools[length] = table
+    return pools, seq_len, row_of
+
+
+def umi_library(spec, rng, n, lo, hi, n_mol):
+    """library() of a UMI-tagged library (the module's docstring)."""
+    n_ins, u3 = int(spec.get("inserts") or 0), int(spec.get("umi_3p") or 0)
+    rate = float(spec.get("umi_substitution_rate") or 0)
+    if min(n_mol, n_ins, u3) <= 0 or not 0 <= rate < 1:
+        raise ValueError("a UMI library needs molecules, inserts and umi_3p "
+                         "> 0, and umi_substitution_rate in [0, 1)")
+    pools, ins_len, ins_row = distinct_pool(rng, n_ins, lo, hi)
+    # Insert j holds a Zipf share of the molecules; each insert's molecules
+    # are spread evenly over the family-size ranks, so every insert's
+    # families follow one shape, and reads per insert are the same for
+    # every seed.
+    group = zipf_sizes(n_ins, n_mol, float(spec.get("insert_zipf_s") or 0))
+    mol_ins = np.repeat(np.arange(n_ins), group)
+    within = np.arange(n_mol) - np.repeat(np.cumsum(group) - group, group)
+    mol_ins = mol_ins[np.argsort((within + 0.5) / group[mol_ins],
+                                 kind="stable")]
+    umis = rng.integers(0, 4, size=(n_mol, u3), dtype=np.uint8)
+    pick = np.repeat(np.arange(n_mol), zipf_sizes(n_mol, n,
+                                                  float(spec["zipf_s"])))
+    rng.shuffle(pick)
+
+    def tagged(length, idx):
+        mol = pick[idx]
+        umi = umis[mol]
+        if rate:
+            hit = rng.random(umi.shape, dtype=np.float32) < rate
+            umi[hit] = (umi[hit] + rng.integers(
+                1, 4, size=int(hit.sum()), dtype=np.uint8)) % 4
+        body = pools[length - u3][ins_row[mol_ins[mol]]]
+        return ALPHABET[np.concatenate([body, umi], 1)]
+
+    return u3 + ins_len[mol_ins[pick]], tagged
 
 
 def write(spec: dict, seed: int, out) -> int:
