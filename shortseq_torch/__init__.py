@@ -10,8 +10,10 @@ Four slices so far, each end to end on the card:
     (`config.PipelineConfig`), and the torch.distributed merge
     `read_and_count_fastq_distributed` through the bucketed exchange's
     kernel K10 (csrc/dist.cu);
-  * UMI read deduplication (`dedup_reads`, `dedup_umis`) through kernels
-    A, B and C (csrc/kernels.cu), `umi_adjacency` and the UMI objects;
+  * UMI read deduplication (`dedup_reads`, `dedup_umis`, and
+    `dedup_fastq` from a FASTQ file, the CLI's path) through kernels A, H
+    (csrc/umi.cu), B and C (csrc/kernels.cu), `umi_adjacency` and the UMI
+    objects;
   * the batch API: `PackedBatch` / `pack_batch` (pack, decode, trim,
     hamming, pairwise, counts, objects) through kernels A, E, F and G
     (csrc/batch.cu) and the calibrated pairwise selector.
@@ -26,8 +28,8 @@ from .api import (ShortSeqCounter, get_domain_64, get_domain_192,
                   read_and_count_fastq_table)
 from .batch import PackedBatch, pack_batch
 from .count import CountTable
-from .umi import (UMI, UMI3p, UMI5p, UMIboth, UMIFactory, dedup_reads,
-                  dedup_umis, umi_adjacency)
+from .umi import (UMI, UMI3p, UMI5p, UMIboth, UMIFactory, dedup_fastq,
+                  dedup_reads, dedup_umis, umi_adjacency)
 
 MIN_VAR_NT, MAX_VAR_NT = get_domain_var()
 MIN_192_NT, MAX_192_NT = get_domain_192()
@@ -57,6 +59,6 @@ __all__ = [
     "MIN_64_NT", "MAX_64_NT", "MIN_192_NT", "MAX_192_NT",
     "MIN_VAR_NT", "MAX_VAR_NT", "BACKEND",
     "PackedBatch", "pack_batch",
-    "dedup_reads", "dedup_umis", "umi_adjacency",
+    "dedup_fastq", "dedup_reads", "dedup_umis", "umi_adjacency",
     "UMI", "UMI5p", "UMI3p", "UMIboth", "UMIFactory", "__version__",
 ]

@@ -100,30 +100,23 @@ def _write_table(args, items, to_json, to_row):
 
 
 def _cmd_umi(args) -> int:
-    import numpy as np
-
-    from .io.fastq import read_fastq_matrix
-    from .umi.dedup import dedup_reads
+    from .umi.dedup import dedup_fastq
 
     if args.len_5p + args.len_3p <= 0:
         print("error: at least one of --len-5p/--len-3p must be positive",
               file=sys.stderr)
         return 2
-    mat, lengths = read_fastq_matrix(args.file, pad_to=1)
-    if len(lengths) and (lengths == lengths[0]).all():
-        reads = np.ascontiguousarray(mat[:, :lengths[0]])  # matrix path
-    else:
-        reads = [mat[i, :lengths[i]].tobytes() for i in range(len(lengths))]
     try:
-        labels, molecules = dedup_reads(
-            reads, len_5p=args.len_5p, len_3p=args.len_3p,
+        molecules, counts = dedup_fastq(
+            args.file, len_5p=args.len_5p, len_3p=args.len_3p,
             threshold=args.threshold, method=args.method,
             device=args.device)
     except Exception as e:
+        # Invalid bases raise the reference's bare Exception, bad paths
+        # OSError, a missing card RuntimeError: all print cleanly.
         print(f"error: {e}", file=sys.stderr)
         return 2
-    counts = np.bincount(labels, minlength=len(molecules))
-    print(f"{len(labels)} reads -> {len(molecules)} molecules "
+    print(f"{int(counts.sum())} reads -> {len(molecules)} molecules "
           f"({args.method}, threshold {args.threshold})", file=sys.stderr)
 
     items = sorted(zip(molecules, counts), key=lambda kv: -kv[1])

@@ -29,6 +29,16 @@ Pipeline:
               into one band a rank (dist/umi.py), gathered in rank order.
   collapse  - host graph walk over the sparse lists, O(edges).
 
+`dedup_fastq` is the CLI's path (`python -m shortseq_torch umi`): a FASTQ
+file read, then `dedup_reads`.  One call of it is one tree of ranges
+under `ssq.umi_dedup` (utils/profiling.py lists them), opened only while
+a profiler records.  `_neighbor_lists` counts its work on itself: `.rows`
+(candidate rows), `.pairs` (rows x the padded columns kernel H compares),
+`.group_pairs` (sum of g * (g - 1) over the group ids, g a group's
+rows: the ordered pairs inside a group, the problem's own work),
+`.overflow_rows` (rows over k), `.edges` (neighbours found) and
+`.umi_lanes` (32-bit lanes the rows' UMIs fill).
+
 `device` is explicit everywhere: "cuda" (the default) runs the kernels
 and raises when there is no card; "cpu" runs their plain PyTorch
 versions; with a mesh the device is the mesh's.
@@ -40,10 +50,11 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..constants import MAX_64_NT
+from ..constants import MAX_64_NT, NT_PER_LANE
 from ..ops.bitpack import pack_and_validate_rows
 from ..ops.lanes import from_numpy_u32
 from ..ops.pairwise import hamming_pairwise_tiled
+from ..utils.profiling import named_scope, scoped
 
 # Memory budget for one row chunk of kernel H's plain version: rows * U
 # int32 distances stay under ~1 GiB (16384^2 * 4 B).  The default `block`
@@ -85,6 +96,7 @@ def _dedup_device(device, mesh) -> torch.device:
     return mesh.device
 
 
+@scoped("ssq.umi_pack")
 def _pack_validate_matrix(mat, lengths, device):
     """Pack an [N, <=32] uint8 UMI byte matrix -> [N, 2] int32 words on
     `device` (kernel A), raising the reference's error on any invalid
@@ -334,6 +346,7 @@ def neighbor_lists_fused(a_words, a_lengths, a_gids, a_rows, words, lengths,
 neighbor_lists_fused.launches = 0
 
 
+@scoped("ssq.umi_neighbors")
 def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
                     mesh=None, *, device=None):
     """Sparse adjacency: neighbours[i] = indices j != i with
@@ -365,6 +378,13 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
     # match nothing real (length -1); their lists are sliced off below.
     quantum = block * (mesh.size if mesh is not None else 1)
     u_pad = -(-u // quantum) * quantum
+    group = np.bincount(np.asarray(gids)) if gids is not None \
+        else np.array([u], np.int64)
+    _neighbor_lists.rows += u
+    _neighbor_lists.pairs += u * u_pad
+    _neighbor_lists.group_pairs += int((group * (group - 1)).sum())
+    _neighbor_lists.umi_lanes += int(
+        (-(-lengths.astype(np.int64) // NT_PER_LANE)).sum())
     if isinstance(words, np.ndarray):
         words = from_numpy_u32(words)
     words = words.to(device)
@@ -398,6 +418,7 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
     # row-major, so one mask + split materializes every per-row list.
     flat = idx[valid]
     neighbors = np.split(flat, np.cumsum(valid.sum(axis=1))[:-1])
+    edges = flat.size
 
     # Rows with more than k neighbours are re-extracted at a larger cap:
     # their ids go to `device` once, each batch's kernel B (into one shared
@@ -408,6 +429,7 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
     # 3L <= 96 < _OVERFLOW_K) take one dense mask fetch per batch of
     # _DENSE_ROWS_BATCH.
     over = np.flatnonzero(cnt > k)
+    _neighbor_lists.overflow_rows += over.size
     if over.size:
         k2 = min(_OVERFLOW_K, u_pad)
         n_over = over.size
@@ -444,7 +466,17 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
                              lengths_d, gids_d, threshold).cpu().numpy()
             for i, r in enumerate(still[lo:lo + _DENSE_ROWS_BATCH]):
                 neighbors[r] = np.flatnonzero(adj[i][:u])
+        edges = sum(map(len, neighbors))
+    _neighbor_lists.edges += int(edges)
     return neighbors
+
+
+_neighbor_lists.rows = 0
+_neighbor_lists.pairs = 0
+_neighbor_lists.group_pairs = 0
+_neighbor_lists.overflow_rows = 0
+_neighbor_lists.edges = 0
+_neighbor_lists.umi_lanes = 0
 
 
 # --- Host collapse (unchanged from the JAX package) -------------------------
@@ -580,8 +612,9 @@ def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
     neighbors = _neighbor_lists(words, lengths[candidates], threshold,
                                 gids=sub_gids, block=block, mesh=mesh,
                                 device=device)
-    sub_roots = _collapse(neighbors, counts[candidates], method)
-    roots[candidates] = candidates[sub_roots]
+    with named_scope("ssq.umi_collapse"):
+        sub_roots = _collapse(neighbors, counts[candidates], method)
+        roots[candidates] = candidates[sub_roots]
     return roots
 
 
@@ -744,20 +777,22 @@ def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
     second one over the unique reads' insert columns.  Returns None when
     the native library is unavailable."""
     length = mat.shape[1]
-    res = _unique_rows(mat)
-    if res is None:
-        return None
-    uniq_mat, counts, inverse = res
-    ins_lo, ins_hi = len_5p, length - len_3p
-    res_g = _unique_rows(np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
-    if res_g is None:
-        return None
-    gids = res_g[2]
-    if len_3p:
-        umi_mat = np.ascontiguousarray(np.concatenate(
-            [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1))
-    else:
-        umi_mat = np.ascontiguousarray(uniq_mat[:, :len_5p])
+    with named_scope("ssq.umi_group"):
+        res = _unique_rows(mat)
+        if res is None:
+            return None
+        uniq_mat, counts, inverse = res
+        ins_lo, ins_hi = len_5p, length - len_3p
+        res_g = _unique_rows(
+            np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
+        if res_g is None:
+            return None
+        gids = res_g[2]
+        if len_3p:
+            umi_mat = np.ascontiguousarray(np.concatenate(
+                [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1))
+        else:
+            umi_mat = np.ascontiguousarray(uniq_mat[:, :len_5p])
     lengths = np.full(len(counts), len_5p + len_3p, np.int32)
     words = _pack_validate_matrix(umi_mat, lengths, device)
 
@@ -766,10 +801,11 @@ def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=block,
                             mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    molecules = [(uniq_mat[i, ins_lo:ins_hi].tobytes(),
-                  umi_mat[i].tobytes()) for i in rep_nodes]
-    return labels_u[inverse], molecules
+    with named_scope("ssq.umi_collapse"):
+        labels_u, rep_nodes = _relabel(roots, counts)
+        molecules = [(uniq_mat[i, ins_lo:ins_hi].tobytes(),
+                      umi_mat[i].tobytes()) for i in rep_nodes]
+        return labels_u[inverse], molecules
 
 
 def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
@@ -782,53 +818,55 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
     library is unavailable."""
     n = len(norm)
     umi_len = len_5p + len_3p
-    per_bucket = []  # (uniq_mat, ins_lo, ins_hi): molecule extraction
-    umi_parts, counts_parts, gids_parts, first_parts = [], [], [], []
-    bucket_parts, row_parts = [], []
-    inverse_global = np.empty(n, np.int64)
-    gid_offset = 0
-    u_total = 0
-    flat, offsets = _flat_rows(norm, lengths_all)
-    for bi, (lng, idx) in enumerate(_length_buckets(lengths_all)):
-        mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
-        res = _unique_rows(mat)
-        if res is None:
-            return None
-        uniq_mat, counts, inverse = res
-        m = len(counts)
-        ins_lo, ins_hi = len_5p, lng - len_3p
-        res_g = _unique_rows(np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
-        if res_g is None:
-            return None
-        # idx is ascending, so within-bucket first occurrence IS the
-        # global one among this bucket's reads.
-        first = np.empty(m, np.int64)
-        first[inverse[::-1]] = idx[::-1]
-        if len_3p:
-            umi_mat = np.concatenate(
-                [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1)
-        else:
-            umi_mat = uniq_mat[:, :len_5p]
-        inverse_global[idx] = inverse + u_total
-        umi_parts.append(umi_mat)
-        counts_parts.append(counts)
-        gids_parts.append(res_g[2] + gid_offset)
-        first_parts.append(first)
-        bucket_parts.append(np.full(m, bi, np.int64))
-        row_parts.append(np.arange(m, dtype=np.int64))
-        per_bucket.append((uniq_mat, ins_lo, ins_hi))
-        gid_offset += len(res_g[1])
-        u_total += m
-    first = np.concatenate(first_parts)
-    order = np.argsort(first, kind="stable")
-    rank = np.empty(u_total, np.int64)
-    rank[order] = np.arange(u_total, dtype=np.int64)
-    counts = np.concatenate(counts_parts)[order]
-    gids = np.concatenate(gids_parts)[order]
-    umi_mat = np.ascontiguousarray(np.concatenate(umi_parts)[order])
-    bucket_of = np.concatenate(bucket_parts)[order]
-    row_of = np.concatenate(row_parts)[order]
-    inverse_global = rank[inverse_global]
+    with named_scope("ssq.umi_group"):
+        per_bucket = []  # (uniq_mat, ins_lo, ins_hi): molecule extraction
+        umi_parts, counts_parts, gids_parts, first_parts = [], [], [], []
+        bucket_parts, row_parts = [], []
+        inverse_global = np.empty(n, np.int64)
+        gid_offset = 0
+        u_total = 0
+        flat, offsets = _flat_rows(norm, lengths_all)
+        for bi, (lng, idx) in enumerate(_length_buckets(lengths_all)):
+            mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
+            res = _unique_rows(mat)
+            if res is None:
+                return None
+            uniq_mat, counts, inverse = res
+            m = len(counts)
+            ins_lo, ins_hi = len_5p, lng - len_3p
+            res_g = _unique_rows(
+                np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
+            if res_g is None:
+                return None
+            # idx is ascending, so within-bucket first occurrence IS the
+            # global one among this bucket's reads.
+            first = np.empty(m, np.int64)
+            first[inverse[::-1]] = idx[::-1]
+            if len_3p:
+                umi_mat = np.concatenate(
+                    [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1)
+            else:
+                umi_mat = uniq_mat[:, :len_5p]
+            inverse_global[idx] = inverse + u_total
+            umi_parts.append(umi_mat)
+            counts_parts.append(counts)
+            gids_parts.append(res_g[2] + gid_offset)
+            first_parts.append(first)
+            bucket_parts.append(np.full(m, bi, np.int64))
+            row_parts.append(np.arange(m, dtype=np.int64))
+            per_bucket.append((uniq_mat, ins_lo, ins_hi))
+            gid_offset += len(res_g[1])
+            u_total += m
+        first = np.concatenate(first_parts)
+        order = np.argsort(first, kind="stable")
+        rank = np.empty(u_total, np.int64)
+        rank[order] = np.arange(u_total, dtype=np.int64)
+        counts = np.concatenate(counts_parts)[order]
+        gids = np.concatenate(gids_parts)[order]
+        umi_mat = np.ascontiguousarray(np.concatenate(umi_parts)[order])
+        bucket_of = np.concatenate(bucket_parts)[order]
+        row_of = np.concatenate(row_parts)[order]
+        inverse_global = rank[inverse_global]
     lengths = np.full(u_total, umi_len, np.int32)
     words = _pack_validate_matrix(umi_mat, lengths, device)
 
@@ -837,14 +875,15 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=block,
                             mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    molecules = []
-    for i in rep_nodes:
-        uniq_mat_b, ins_lo, ins_hi = per_bucket[bucket_of[i]]
-        row = uniq_mat_b[row_of[i]]
-        molecules.append((row[ins_lo:ins_hi].tobytes(),
-                          umi_mat[i].tobytes()))
-    return labels_u[inverse_global], molecules
+    with named_scope("ssq.umi_collapse"):
+        labels_u, rep_nodes = _relabel(roots, counts)
+        molecules = []
+        for i in rep_nodes:
+            uniq_mat_b, ins_lo, ins_hi = per_bucket[bucket_of[i]]
+            row = uniq_mat_b[row_of[i]]
+            molecules.append((row[ins_lo:ins_hi].tobytes(),
+                              umi_mat[i].tobytes()))
+        return labels_u[inverse_global], molecules
 
 
 def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
@@ -922,22 +961,23 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
         if res is not None:
             return res
 
-    gid_of = {}
-    inserts = []
-    keys = []  # per-read (gid, umi)
-    for r in norm:
-        u5, insert, u3 = split_read(r, len_5p, len_3p)
-        gid = gid_of.setdefault(insert, len(gid_of))
-        if gid == len(inserts):
-            inserts.append(insert)
-        keys.append((gid, u5 + u3))
+    with named_scope("ssq.umi_group"):
+        gid_of = {}
+        inserts = []
+        keys = []  # per-read (gid, umi)
+        for r in norm:
+            u5, insert, u3 = split_read(r, len_5p, len_3p)
+            gid = gid_of.setdefault(insert, len(gid_of))
+            if gid == len(inserts):
+                inserts.append(insert)
+            keys.append((gid, u5 + u3))
 
-    counter = collections.Counter(keys)
-    uniq = list(counter)
-    index = {k: i for i, k in enumerate(uniq)}
-    inverse = np.fromiter((index[k] for k in keys), np.int64, len(keys))
-    counts = np.fromiter((counter[k] for k in uniq), np.int64, len(uniq))
-    gids = np.fromiter((g for g, _ in uniq), np.int64, len(uniq))
+        counter = collections.Counter(keys)
+        uniq = list(counter)
+        index = {k: i for i, k in enumerate(uniq)}
+        inverse = np.fromiter((index[k] for k in keys), np.int64, len(keys))
+        counts = np.fromiter((counter[k] for k in uniq), np.int64, len(uniq))
+        gids = np.fromiter((g for g, _ in uniq), np.int64, len(uniq))
 
     # Every unique UMI goes through the packed validity check.
     words, lengths = _pack_validate_umis([u for _, u in uniq], device)
@@ -948,6 +988,38 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
     roots = _cluster_unique(words, lengths, counts, method, threshold,
                             gids=gids, candidates=candidates, block=_block,
                             mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    molecules = [(inserts[uniq[i][0]], uniq[i][1]) for i in rep_nodes]
-    return labels_u[inverse], molecules
+    with named_scope("ssq.umi_collapse"):
+        labels_u, rep_nodes = _relabel(roots, counts)
+        molecules = [(inserts[uniq[i][0]], uniq[i][1]) for i in rep_nodes]
+        return labels_u[inverse], molecules
+
+
+def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
+                threshold: int = 1, method: str = "directional",
+                device=None):
+    """UMI read deduplication of a FASTQ file (plain or gzip): the path
+    of `python -m shortseq_torch umi`.  The reads are read with
+    io.fastq.read_fastq_matrix, then go to `dedup_reads` as one uint8
+    matrix when all have one length and as a list of bytes otherwise.
+
+    Returns (molecules, reads_per_molecule): `molecules[m]` is
+    `(insert_bytes, umi_bytes)` as `dedup_reads` gives it, and
+    `reads_per_molecule[m]` (int64) the number of reads of molecule m.
+    Arguments and errors are `dedup_reads`'."""
+    from ..io.fastq import read_fastq_matrix
+
+    with named_scope("ssq.umi_dedup"):
+        with named_scope("ssq.umi_read"):
+            mat, lengths = read_fastq_matrix(filename, pad_to=1)
+            if len(lengths) and (lengths == lengths[0]).all():
+                reads = np.ascontiguousarray(mat[:, :lengths[0]])
+            else:
+                reads = [mat[i, :lengths[i]].tobytes()
+                         for i in range(len(lengths))]
+        labels, molecules = dedup_reads(
+            reads, len_5p=len_5p, len_3p=len_3p, threshold=threshold,
+            method=method, device=device)
+        with named_scope("ssq.umi_collapse"):
+            reads_per_molecule = np.bincount(labels,
+                                             minlength=len(molecules))
+    return molecules, reads_per_molecule

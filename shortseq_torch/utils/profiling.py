@@ -29,6 +29,23 @@ One library call is one tree under its root:
   ssq.table_read    CountTable's lazy reads (most_common, total, get,
                     values, `in`, `[]`)
 
+The UMI path marks its stages alike; one call of umi.dedup.dedup_fastq
+(the CLI's `umi`) is one tree under its root:
+
+  ssq.umi_dedup       dedup_fastq: the root of one call
+    ssq.umi_read      read_fastq_matrix and the reads' ragged list
+    ssq.umi_group     the native _unique_rows passes, the length buckets
+                      and the re-rank into first-occurrence order
+    ssq.umi_pack      kernel A with its copies (_pack_validate_matrix)
+    ssq.umi_neighbors _neighbor_lists: kernel H, the overflow tier, the
+                      fetch and the per-row split
+    ssq.umi_collapse  _edge_csr, the walk, _relabel, the molecule tuples
+                      and the reads per molecule (more than one a call)
+
+dedup_reads and dedup_umis called alone open the same stages with no
+root.  `_neighbor_lists` counts its work on itself (`.rows`, `.pairs`,
+`.group_pairs`, `.overflow_rows`, `.edges`, `.umi_lanes`; umi/dedup.py).
+
 ssq.h2d and ssq.d2h open wherever a copy is made (on a CPU device too,
 where nothing crosses); ssq.to_counter is a root of its own when called
 on a table.  A range of one name never holds another of that name.
