@@ -14,9 +14,9 @@ Pipeline:
 
   group     - unique (insert, UMI) keys + counts + per-item inverse via
               the threaded native hash counter (_unique_rows, host); a
-              uniform-length matrix path, a length-bucketed ragged path,
-              and the per-read Python dict path when the native library
-              is missing.
+              uniform-length matrix path, a length-bucketed ragged path
+              over a padded read matrix, and the per-read Python dict
+              path when the native library is missing.
   pack      - the unique UMIs are packed and validated on `device`
               (kernel A, ops/bitpack.py).
   adjacency - kernel H (csrc/umi.cu) finds every row's first k neighbour
@@ -30,14 +30,16 @@ Pipeline:
   collapse  - host graph walk over the sparse lists, O(edges).
 
 `dedup_fastq` is the CLI's path (`python -m shortseq_torch umi`): a FASTQ
-file read, then `dedup_reads`.  One call of it is one tree of ranges
-under `ssq.umi_dedup` (utils/profiling.py lists them), opened only while
-a profiler records.  `_neighbor_lists` counts its work on itself: `.rows`
-(candidate rows), `.pairs` (rows x the padded columns kernel H compares),
-`.group_pairs` (sum of g * (g - 1) over the group ids, g a group's
-rows: the ordered pairs inside a group, the problem's own work),
-`.overflow_rows` (rows over k), `.edges` (neighbours found) and
-`.umi_lanes` (32-bit lanes the rows' UMIs fill).
+file read into a padded matrix, then the grouping over that matrix.  One
+call of it is one tree of ranges under `ssq.umi_dedup` (utils/profiling.py
+lists them), opened only while a profiler records.  `_neighbor_lists`
+counts its work on itself: `.rows` (candidate rows), `.pairs` (rows x the
+padded columns kernel H compares), `.group_pairs` (sum of g * (g - 1)
+over the group ids, g a group's rows: the ordered pairs inside a group,
+the problem's own work), `.overflow_rows` (rows over k), `.edges`
+(neighbours found) and `.umi_lanes` (32-bit lanes the rows' UMIs fill);
+`_dedup_reads_ragged` counts the reads it took as a padded matrix
+(`.padded_reads`) and as a list laid into one (`.list_reads`).
 
 `device` is explicit everywhere: "cuda" (the default) runs the kernels
 and raises when there is no card; "cpu" runs their plain PyTorch
@@ -808,27 +810,24 @@ def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
         return labels_u[inverse], molecules
 
 
-def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
+def _dedup_reads_ragged(mat, lengths_all, len_5p, len_3p, method,
                         threshold, block, device, mesh=None):
-    """Length-bucketed vectorized dedup_reads for ragged read lists.
-    Reads of different lengths never share an insert, so grouping
-    decomposes exactly by read length; per-bucket uniques are re-ranked
-    into GLOBAL first-occurrence order so labels and molecules stay
-    identical to the Python dict path.  Returns None when the native
-    library is unavailable."""
-    n = len(norm)
+    """Length-bucketed vectorized dedup_reads for ragged reads, held as a
+    padded [N, W] uint8 matrix and [N] lengths: read i is
+    `mat[i, :lengths_all[i]]`.  Reads of different lengths never share an
+    insert, so grouping decomposes exactly by read length; per-bucket
+    uniques are re-ranked into GLOBAL first-occurrence order so labels and
+    molecules stay identical to the Python dict path.  Returns None when
+    the native library is unavailable."""
+    n = len(lengths_all)
     umi_len = len_5p + len_3p
     with named_scope("ssq.umi_group"):
-        per_bucket = []  # (uniq_mat, ins_lo, ins_hi): molecule extraction
         umi_parts, counts_parts, gids_parts, first_parts = [], [], [], []
-        bucket_parts, row_parts = [], []
         inverse_global = np.empty(n, np.int64)
         gid_offset = 0
         u_total = 0
-        flat, offsets = _flat_rows(norm, lengths_all)
-        for bi, (lng, idx) in enumerate(_length_buckets(lengths_all)):
-            mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
-            res = _unique_rows(mat)
+        for lng, idx in _length_buckets(lengths_all):
+            res = _unique_rows(np.ascontiguousarray(mat[idx, :lng]))
             if res is None:
                 return None
             uniq_mat, counts, inverse = res
@@ -852,9 +851,6 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
             counts_parts.append(counts)
             gids_parts.append(res_g[2] + gid_offset)
             first_parts.append(first)
-            bucket_parts.append(np.full(m, bi, np.int64))
-            row_parts.append(np.arange(m, dtype=np.int64))
-            per_bucket.append((uniq_mat, ins_lo, ins_hi))
             gid_offset += len(res_g[1])
             u_total += m
         first = np.concatenate(first_parts)
@@ -864,8 +860,7 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
         counts = np.concatenate(counts_parts)[order]
         gids = np.concatenate(gids_parts)[order]
         umi_mat = np.ascontiguousarray(np.concatenate(umi_parts)[order])
-        bucket_of = np.concatenate(bucket_parts)[order]
-        row_of = np.concatenate(row_parts)[order]
+        first = first[order]
         inverse_global = rank[inverse_global]
     lengths = np.full(u_total, umi_len, np.int32)
     words = _pack_validate_matrix(umi_mat, lengths, device)
@@ -877,13 +872,42 @@ def _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p, method,
                             mesh=mesh, device=device)
     with named_scope("ssq.umi_collapse"):
         labels_u, rep_nodes = _relabel(roots, counts)
-        molecules = []
-        for i in rep_nodes:
-            uniq_mat_b, ins_lo, ins_hi = per_bucket[bucket_of[i]]
-            row = uniq_mat_b[row_of[i]]
-            molecules.append((row[ins_lo:ins_hi].tobytes(),
-                              umi_mat[i].tobytes()))
+        # A molecule's insert is sliced from the row of its
+        # representative key's first read.
+        width = mat.shape[1]
+        reads = first[rep_nodes]
+        rows = mat[reads].tobytes()
+        ends = (lengths_all[reads] - len_3p).tolist()
+        umis = umi_mat[rep_nodes].tobytes()
+        molecules = [(rows[k * width + len_5p:k * width + e],
+                      umis[k * umi_len:(k + 1) * umi_len])
+                     for k, e in enumerate(ends)]
         return labels_u[inverse_global], molecules
+
+
+_dedup_reads_ragged.padded_reads = 0
+_dedup_reads_ragged.list_reads = 0
+
+
+def _padded_rows(norm, lengths_all):
+    """A ragged bytes list laid into one zero-padded [N, longest] uint8
+    matrix, row i holding read i: _dedup_reads_ragged's input form."""
+    mat = np.zeros((len(norm), int(lengths_all.max())), np.uint8)
+    mat[np.arange(mat.shape[1]) < lengths_all[:, None]] = np.frombuffer(
+        b"".join(norm), np.uint8)
+    return mat
+
+
+def _check_read_args(len_5p, len_3p, method):
+    """dedup_reads' argument checks, with the reference's messages."""
+    if method not in _METHODS:
+        raise ValueError(f"Unknown method: {method}")
+    if len_5p < 0 or len_3p < 0:
+        raise ValueError("UMI lengths must be non-negative")
+    if len_5p + len_3p == 0:
+        raise ValueError("at least one UMI length must be positive")
+    if len_5p + len_3p > MAX_64_NT:
+        raise ValueError("UMIs longer than 32 nt are not supported")
 
 
 def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
@@ -913,14 +937,7 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
     """
     import collections
 
-    if method not in _METHODS:
-        raise ValueError(f"Unknown method: {method}")
-    if len_5p < 0 or len_3p < 0:
-        raise ValueError("UMI lengths must be non-negative")
-    if len_5p + len_3p == 0:
-        raise ValueError("at least one UMI length must be positive")
-    if len_5p + len_3p > MAX_64_NT:
-        raise ValueError("UMIs longer than 32 nt are not supported")
+    _check_read_args(len_5p, len_3p, method)
     device = _dedup_device(device, mesh)
     if len(reads) == 0:
         return np.zeros(0, np.int64), []
@@ -955,9 +972,11 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
                     len(norm), lng),
                 len_5p, len_3p, method, threshold, _block, device, mesh)
         else:
-            res = _dedup_reads_ragged(norm, lengths_all, len_5p, len_3p,
-                                      method, threshold, _block, device,
-                                      mesh)
+            res = _dedup_reads_ragged(_padded_rows(norm, lengths_all),
+                                      lengths_all, len_5p, len_3p, method,
+                                      threshold, _block, device, mesh)
+            if res is not None:
+                _dedup_reads_ragged.list_reads += len(norm)
         if res is not None:
             return res
 
@@ -999,8 +1018,14 @@ def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
                 device=None):
     """UMI read deduplication of a FASTQ file (plain or gzip): the path
     of `python -m shortseq_torch umi`.  The reads are read with
-    io.fastq.read_fastq_matrix, then go to `dedup_reads` as one uint8
-    matrix when all have one length and as a list of bytes otherwise.
+    io.fastq.read_fastq_matrix into one padded uint8 matrix and their
+    lengths.  Reads of one length go to `dedup_reads` as that matrix;
+    ragged reads go from the padded matrix straight to the length-bucketed
+    `_dedup_reads_ragged`, with no per-read bytes object, and are counted on
+    `_dedup_reads_ragged.padded_reads` (reads that `dedup_reads` lays
+    from a list into that form count on `.list_reads`).  A read shorter
+    than the UMIs, or no native hash counter, takes `dedup_reads`' list
+    path, which raises or answers as the reference does.
 
     Returns (molecules, reads_per_molecule): `molecules[m]` is
     `(insert_bytes, umi_bytes)` as `dedup_reads` gives it, and
@@ -1011,14 +1036,26 @@ def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
     with named_scope("ssq.umi_dedup"):
         with named_scope("ssq.umi_read"):
             mat, lengths = read_fastq_matrix(filename, pad_to=1)
-            if len(lengths) and (lengths == lengths[0]).all():
+        _check_read_args(len_5p, len_3p, method)
+        device = _dedup_device(device, None)
+        uniform = bool(len(lengths)) and bool((lengths == lengths[0]).all())
+        res = None
+        if (len(lengths) and not uniform
+                and int(lengths.min()) >= len_5p + len_3p):
+            res = _dedup_reads_ragged(mat, lengths, len_5p, len_3p, method,
+                                      threshold, None, device)
+            if res is not None:
+                _dedup_reads_ragged.padded_reads += len(lengths)
+        if res is None:
+            if uniform:
                 reads = np.ascontiguousarray(mat[:, :lengths[0]])
             else:
                 reads = [mat[i, :lengths[i]].tobytes()
                          for i in range(len(lengths))]
-        labels, molecules = dedup_reads(
-            reads, len_5p=len_5p, len_3p=len_3p, threshold=threshold,
-            method=method, device=device)
+            res = dedup_reads(reads, len_5p=len_5p, len_3p=len_3p,
+                              threshold=threshold, method=method,
+                              device=device)
+        labels, molecules = res
         with named_scope("ssq.umi_collapse"):
             reads_per_molecule = np.bincount(labels,
                                              minlength=len(molecules))

@@ -33,7 +33,8 @@ The UMI path marks its stages alike; one call of umi.dedup.dedup_fastq
 (the CLI's `umi`) is one tree under its root:
 
   ssq.umi_dedup       dedup_fastq: the root of one call
-    ssq.umi_read      read_fastq_matrix and the reads' ragged list
+    ssq.umi_read      read_fastq_matrix: the padded read matrix and
+                      its lengths
     ssq.umi_group     the native _unique_rows passes, the length buckets
                       and the re-rank into first-occurrence order
     ssq.umi_pack      kernel A with its copies (_pack_validate_matrix)
@@ -44,7 +45,10 @@ The UMI path marks its stages alike; one call of umi.dedup.dedup_fastq
 
 dedup_reads and dedup_umis called alone open the same stages with no
 root.  `_neighbor_lists` counts its work on itself (`.rows`, `.pairs`,
-`.group_pairs`, `.overflow_rows`, `.edges`, `.umi_lanes`; umi/dedup.py).
+`.group_pairs`, `.overflow_rows`, `.edges`, `.umi_lanes`; umi/dedup.py),
+and the ragged read path `_dedup_reads_ragged` the reads it took by
+their form: `.padded_reads` (a padded matrix, dedup_fastq's) and
+`.list_reads` (a list that dedup_reads laid into that form).
 
 ssq.h2d and ssq.d2h open wherever a copy is made (on a CPU device too,
 where nothing crosses); ssq.to_counter is a root of its own when called

@@ -192,6 +192,89 @@ def test_read_fastq_matrix_matches_jax(tmp_path, monkeypatch, gz):
         np.testing.assert_array_equal(lens, want[1])
 
 
+#: name: (len_5p, len_3p, insert lengths); one insert length is a file
+#: of one read length, which takes the matrix route.
+FASTQ_CASES = {"3p": (0, 12, (18, 21, 25)), "both_ends": (4, 6, (9, 14)),
+               "one_length": (0, 12, (20,))}
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "no_native"])
+@pytest.mark.parametrize("case", sorted(FASTQ_CASES))
+def test_dedup_fastq_matches_reads_and_jax(tmp_path, capsys, monkeypatch,
+                                           case, native):
+    """dedup_fastq (the padded matrix from the file to the molecules)
+    equals dedup_reads on the list of the same reads, and the JAX
+    package's dedup_reads and CLI; without the native hash counter it
+    falls back to the list path and still does."""
+    import shortseq_torch.io.native as tn
+
+    len_5p, len_3p, inserts = FASTQ_CASES[case]
+    reads = _reads(21, len_5p, len_3p, insert_lens=inserts, n=900)
+    path = tmp_path / "reads.fastq"
+    _write_fastq(path, reads)
+    kw = dict(len_5p=len_5p, len_3p=len_3p)
+    labels, molecules = jd.dedup_reads(reads, **kw)
+    if not native:
+        monkeypatch.setattr(tn, "host_count_native", lambda *a, **k: None)
+    padded = td._dedup_reads_ragged.padded_reads
+    got, per_molecule = td.dedup_fastq(str(path), device="cpu", **kw)
+    assert td._dedup_reads_ragged.padded_reads - padded == (
+        len(reads) if native and len(inserts) > 1 else 0)
+    assert got == molecules
+    np.testing.assert_array_equal(
+        per_molecule, np.bincount(labels, minlength=len(molecules)))
+    _assert_same(td.dedup_reads(reads, device="cpu", **kw),
+                 (labels, molecules))
+    argv = ["umi", str(path), "--len-5p", str(len_5p), "--len-3p",
+            str(len_3p)]
+    assert jax_main(argv) == 0
+    want = capsys.readouterr()
+    assert torch_main(argv + ["--device", "cpu"]) == 0
+    assert capsys.readouterr() == want
+
+
+@pytest.mark.parametrize("pad_to", [1, 16])
+@pytest.mark.parametrize("method", METHODS)
+def test_ragged_path_reads_only_each_rows_read(tmp_path, method, pad_to):
+    """_dedup_reads_ragged on read_fastq_matrix's padded matrix, PAD bytes
+    past every short read, gives the JAX package's labels and
+    molecules."""
+    from shortseq_torch.constants import PAD_BYTE
+    from shortseq_torch.io.fastq import read_fastq_matrix
+
+    reads = _reads(22, 5, 3, insert_lens=(4, 9, 11), n=600)
+    path = tmp_path / "reads.fastq"
+    _write_fastq(path, reads)
+    mat, lengths = read_fastq_matrix(path, pad_to=pad_to)
+    short = lengths < mat.shape[1]
+    assert short.any() and (mat[short, -1] == PAD_BYTE).all()
+    got = td._dedup_reads_ragged(mat, lengths, 5, 3, method, 1, None,
+                                 torch.device("cpu"))
+    _assert_same(got, jd.dedup_reads(reads, len_5p=5, len_3p=3,
+                                     method=method))
+
+
+def test_dedup_fastq_short_read_raises_reference_error(tmp_path, capsys):
+    reads = _reads(23, 6, 2, insert_lens=(3, 10), n=200)
+    reads.insert(150, b"ACGTAC")   # shorter than 6 + 2
+    reads.insert(170, b"ACG")
+    path = tmp_path / "reads.fastq"
+    _write_fastq(path, reads)
+    errors = []
+    for call in (lambda: td.dedup_fastq(str(path), len_5p=6, len_3p=2,
+                                        device="cpu"),
+                 lambda: jd.dedup_reads(reads, len_5p=6, len_3p=2)):
+        with pytest.raises(Exception, match="shorter than") as info:
+            call()
+        errors.append((type(info.value), str(info.value)))
+    assert errors[0] == errors[1] and "Read of 6 nt" in errors[0][1]
+    argv = ["umi", str(path), "--len-5p", "6", "--len-3p", "2"]
+    assert jax_main(argv) == 2
+    want = capsys.readouterr()
+    assert torch_main(argv + ["--device", "cpu"]) == 2
+    assert capsys.readouterr() == want
+
+
 @pytest.mark.parametrize("directional", [False, True])
 def test_greedy_absorb_native_matches_python_and_jax(monkeypatch,
                                                      directional):

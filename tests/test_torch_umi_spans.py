@@ -4,7 +4,8 @@ them), each stage inside the root and no range inside another of its own
 name; `_neighbor_lists` counts its rows, pairs, in-group pairs, overflow
 rows, edges and UMI lanes as worked out by hand for a small library, on
 the CPU, for the ragged path (the CLI's, reads of several lengths) and
-the matrix path (reads of one length)."""
+the matrix path (reads of one length), and the ragged path's count of
+the reads it took as a padded matrix or as a list."""
 
 import collections
 
@@ -46,6 +47,9 @@ def _reads(ragged):
 COUNTS = {"rows": 39, "pairs": 39 * 256, "group_pairs": 37 * 36 + 2,
           "overflow_rows": 1, "edges": 36 + 36 * 3 + 2, "umi_lanes": 39}
 
+#: The ragged path's counters of the reads it took, by input form.
+RAGGED = ("padded_reads", "list_reads")
+
 #: name: (ranges in one call, parent).
 SPANS = {
     "ssq.umi_dedup": (1, None),
@@ -67,10 +71,15 @@ def traced(request, tmp_path_factory):
         for i, r in enumerate(reads):
             f.write(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n")
     before = {a: getattr(dedup._neighbor_lists, a) for a in COUNTS}
+    before.update({a: getattr(dedup._dedup_reads_ragged, a)
+                   for a in RAGGED})
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         molecules, per = st.dedup_fastq(str(path), len_3p=12, device="cpu")
     grown = {a: getattr(dedup._neighbor_lists, a) - before[a]
              for a in COUNTS}
+    grown.update({a: getattr(dedup._dedup_reads_ragged, a) - before[a]
+                  for a in RAGGED})
+    grown["ragged"] = request.param
     assert len(molecules) == 3 and sorted(per.tolist()) == [1, 4, 86]
     ranges = sorted((Range(e.name, e.time_range.start, e.time_range.end)
                      for e in prof.events() if e.name.startswith("ssq.")),
@@ -117,3 +126,22 @@ def test_umi_stages_only_inside_the_root(traced):
 def test_neighbor_counters(traced, name):
     _, grown = traced
     assert grown[name] == COUNTS[name]
+
+
+def test_ragged_path_counts_the_padded_matrix(traced):
+    """A ragged file reaches _dedup_reads_ragged as read_fastq_matrix's padded
+    matrix; a file of one read length takes the matrix route."""
+    _, grown = traced
+    n = len(_reads(grown["ragged"]))
+    assert grown["padded_reads"] == (n if grown["ragged"] else 0)
+    assert grown["list_reads"] == 0
+
+
+def test_ragged_path_counts_a_list():
+    reads = _reads(True)
+    before = {a: getattr(dedup._dedup_reads_ragged, a) for a in RAGGED}
+    labels, molecules = st.dedup_reads(reads, len_3p=12, device="cpu")
+    assert len(molecules) == 3 and len(labels) == len(reads)
+    grown = {a: getattr(dedup._dedup_reads_ragged, a) - before[a]
+             for a in RAGGED}
+    assert grown == {"padded_reads": 0, "list_reads": len(reads)}
