@@ -187,6 +187,7 @@ data comes from numpy seeds, so every run checks the same inputs.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import statistics
@@ -634,7 +635,7 @@ def kernel_a(torch, timer, lines):
     main path's shapes, timed (CUDA events and torch.profiler): file 1's
     [10M, 32] byte rows in make_sharded_counter ([10M,8] lanes, random
     lengths, 1% bad bytes; with and without pad_valid; the JSON line's
-    shape), dedup_umis' 100,000 12-nt UMIs (_pack_validate_umis: [100000,
+    shape), dedup_umis' 100,000 12-nt UMIs (_pack_validate_matrix: [100000,
     8], zero past 12), and each width class of count_matrix_device on
     file 3's 1M reads of 0-300 nt ([.., 8], [.., 24], [.., 256]); then,
     exact only, the widths whose rows a power-of-two thread group left
@@ -784,14 +785,23 @@ def c_edge_slab(u, k, seed, threshold=1):
     return dist, a_len, a_gid, a_rows, lengths, gids
 
 
+def pack_umis(umis):
+    """A list of UMIs packed on the card as dedup_umis packs them (kernel
+    A): ([U, 2] words, [U] numpy int32 lengths)."""
+    import numpy as np
+
+    from shortseq_torch.umi import dedup
+
+    mat, lengths = dedup._padded_rows(umis)
+    lengths = lengths.astype(np.int32)
+    return dedup._pack_validate_matrix(mat, lengths, "cuda"), lengths
+
+
 def fan_words(torch):
     """Phase umi_scale's 7,400 unique fan UMIs (threshold 2: every row
     over the main pass's cap of 16), packed on the card: ([U, 2] words,
     [U] numpy lengths)."""
-    from shortseq_torch.umi import dedup
-
-    fans = list(dict.fromkeys(fan_umis(200, 12, seed=5)))
-    return dedup._pack_validate_umis(fans, "cuda")
+    return pack_umis(list(dict.fromkeys(fan_umis(200, 12, seed=5))))
 
 
 def kernel_c(torch, timer, lines, band, slab=None, extras=True):
@@ -2848,7 +2858,7 @@ def phase_umi_scale(torch, main_path):
     # A 512-row slab of the neighbour lists against the plain dense check;
     # the lists' wall, and the host's split of the fetched lists into one
     # array per row timed alone on the same lists.
-    words, lengths = dedup._pack_validate_umis(uniq, "cuda")
+    words, lengths = pack_umis(uniq)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbrs = dedup._neighbor_lists(words, lengths, 1, device="cuda")
@@ -3693,8 +3703,7 @@ def h_bands(torch, lines):
 
     timer = Timer(torch)
     u = 100_000
-    words, lengths = dedup._pack_validate_umis(rand_umis(u, 12, seed=0),
-                                               "cuda")
+    words, lengths = pack_umis(rand_umis(u, 12, seed=0))
     whole = {}
     for d, rank, rows, u_pad in UMI_BANDS:
         if u_pad not in whole:
@@ -4070,8 +4079,8 @@ def main() -> int:
     # The main path: kernel launches and the paths taken, counted.
     main_path = MainPath()
     paths, found = {}, {}
-    for module, name in ((dedup, "_dedup_umi_matrix"),
-                         (dedup, "_dedup_reads_matrix"),
+    for module, name in ((dedup, "_dedup_umis_ragged"),
+                         (dedup, "_dedup_reads_ragged"),
                          (counter, "count_indexed_device_table"),
                          (counter, "_read_and_count_table_streamed"),
                          (counter, "_h2d_chunks"),
@@ -4086,7 +4095,8 @@ def main() -> int:
                 paths[_name] = paths.get(_name, 0) + 1
             return out
 
-        setattr(module, name, counted)
+        # wraps: the wrapped functions' counters stay reachable by name.
+        setattr(module, name, functools.wraps(real)(counted))
     with tempfile.TemporaryDirectory() as workdir:
         # Every run calibrates the pairwise selector afresh, into workdir.
         pairwise._calib_file = lambda: str(Path(workdir) / "calib.json")
@@ -4149,7 +4159,7 @@ def main() -> int:
             raise AssertionError(f"merge tiers taken: {found['tiers']}")
         if native.get_lib() is None:
             raise AssertionError("native host library not loaded")
-        want = {"_dedup_umi_matrix", "_dedup_reads_matrix",
+        want = {"_dedup_umis_ragged", "_dedup_reads_ragged",
                 "count_indexed_device_table",
                 "_read_and_count_table_streamed", "_h2d_chunks",
                 "count_fastq_sharded", "read_and_count_fastq_distributed",

@@ -12,11 +12,13 @@ same labels and representatives, byte for byte:
 
 Pipeline:
 
-  group     - unique (insert, UMI) keys + counts + per-item inverse via
-              the threaded native hash counter (_unique_rows, host); a
-              uniform-length matrix path, a length-bucketed ragged path
-              over a padded read matrix, and the per-read Python dict
-              path when the native library is missing.
+  group     - unique (insert, UMI) keys + counts + per-item inverse, on
+              the host: every input, a list or a matrix, is one padded
+              uint8 matrix and its lengths, grouped one length bucket
+              at a time (_group_buckets) by _unique_rows, which runs the
+              threaded native hash counter when built and numpy
+              otherwise.  One function groups reads
+              (_dedup_reads_ragged), one UMIs (_dedup_umis_ragged).
   pack      - the unique UMIs are packed and validated on `device`
               (kernel A, ops/bitpack.py).
   adjacency - kernel H (csrc/umi.cu) finds every row's first k neighbour
@@ -38,8 +40,9 @@ padded columns kernel H compares), `.group_pairs` (sum of g * (g - 1)
 over the group ids, g a group's rows: the ordered pairs inside a group,
 the problem's own work), `.overflow_rows` (rows over k), `.edges`
 (neighbours found) and `.umi_lanes` (32-bit lanes the rows' UMIs fill);
-`_dedup_reads_ragged` counts the reads it took as a padded matrix
-(`.padded_reads`) and as a list laid into one (`.list_reads`).
+`_dedup_reads_ragged.padded_reads` counts the reads that came as a padded
+matrix (every read of `dedup_fastq`, and a uint8 matrix given to
+`dedup_reads`), `.list_reads` those laid into one from a list.
 
 `device` is explicit everywhere: "cuda" (the default) runs the kernels
 and raises when there is no card; "cpu" runs their plain PyTorch
@@ -122,29 +125,27 @@ def _pack_validate_matrix(mat, lengths, device):
     return words
 
 
-def _pack_validate_umis(uniq, device):
-    """Pack a list of unique UMI bytes -> ([U, 2] words on `device`, [U]
-    lengths), raising the reference's error on any invalid base."""
-    width = 32
-    lengths = np.fromiter(map(len, uniq), np.int32, len(uniq))
-    if lengths.size and lengths.max() > MAX_64_NT:
-        raise ValueError("UMIs longer than 32 nt are not supported")
-    mat = np.zeros((len(uniq), width), np.uint8)
-    if lengths.size and lengths.min() == lengths.max():
-        # Fixed-length UMIs: one join + reshape instead of a Python loop.
-        mat[:, :lengths[0]] = np.frombuffer(
-            b"".join(uniq), np.uint8).reshape(len(uniq), lengths[0])
-    else:
-        for i, u in enumerate(uniq):
-            mat[i, :len(u)] = np.frombuffer(u, np.uint8)
-    return _pack_validate_matrix(mat, lengths, device), lengths
+def _first_order(inverse, m):
+    """The m keys of rows whose key is inverse[i], in order of first
+    occurrence: (first [m], each key's first row in that order; order,
+    the keys in that order; rank [m], each key's place in it)."""
+    first = np.empty(m, np.int64)
+    # Later writes win, so writing rows in descending order leaves each
+    # key its smallest row.
+    first[inverse[::-1]] = np.arange(len(inverse) - 1, -1, -1,
+                                     dtype=np.int64)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(m, np.int64)
+    rank[order] = np.arange(m, dtype=np.int64)
+    return first[order], order, rank
 
 
 def _unique_rows(mat):
     """np.unique(mat, axis=0, return_counts+inverse) in global
-    first-occurrence order, via the threaded native hash counter: returns
-    (unique [M, L] uint8, counts [M] int64, inverse [N] int64), or None
-    when the native library is unavailable."""
+    first-occurrence order: (unique [M, L] uint8, counts [M] int64,
+    inverse [N] int64).  Runs the threaded native hash counter when
+    built; numpy's unique over the rows, each one void field, is its
+    behavioural twin."""
     from ..io.native import host_count_native
 
     n, ncol = mat.shape
@@ -152,26 +153,20 @@ def _unique_rows(mat):
         # Zero-width rows are all equal.
         return (np.zeros((1, 0), np.uint8), np.array([n], np.int64),
                 np.zeros(n, np.int64))
+    mat = np.ascontiguousarray(mat)
     pad = -ncol % 4
-    if pad:
-        mat = np.pad(mat, ((0, 0), (0, pad)))
-    words = np.ascontiguousarray(mat).view(np.uint32)
-    res = host_count_native(words, np.full(n, ncol, np.int32),
+    words = np.pad(mat, ((0, 0), (0, pad))) if pad else mat
+    res = host_count_native(words.view(np.uint32), np.full(n, ncol, np.int32),
                             return_inverse=True)
     if res is None:
-        return None
-    uw, _, counts, inv = res
-    m = len(counts)
-    # The native table is first-occurrence-ordered per hash partition;
-    # re-rank globally.  Reversed fancy assignment keeps the SMALLEST
-    # input index per unique id (later writes win, so write descending).
-    first = np.empty(m, np.int64)
-    first[inv[::-1]] = np.arange(n - 1, -1, -1, dtype=np.int64)
-    order = np.argsort(first, kind="stable")
-    rank = np.empty(m, np.int64)
-    rank[order] = np.arange(m, dtype=np.int64)
-    uniq_mat = uw.view(np.uint8).reshape(m, ncol + pad)[:, :ncol][order]
-    return np.ascontiguousarray(uniq_mat), counts[order], rank[inv]
+        _, inverse, counts = np.unique(
+            mat.view(np.dtype((np.void, ncol)))[:, 0], return_inverse=True,
+            return_counts=True)
+    else:
+        # The native table is first-occurrence-ordered per hash partition.
+        _, _, counts, inverse = res
+    first, order, rank = _first_order(inverse, len(counts))
+    return mat[first], counts[order], rank[inverse]
 
 
 def umi_adjacency(words, lengths, threshold: int = 1) -> np.ndarray:
@@ -620,6 +615,73 @@ def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
     return roots
 
 
+def _length_buckets(lengths_all):
+    """Yield (length, ascending original indices) per distinct length in
+    ascending length order: one stable argsort + searchsorted split."""
+    order = np.argsort(lengths_all, kind="stable")
+    sorted_lens = lengths_all[order]
+    uniq_lens = np.unique(sorted_lens)
+    bounds = np.searchsorted(sorted_lens, uniq_lens)
+    bounds = np.append(bounds, len(order))
+    for i, lng in enumerate(uniq_lens):
+        yield int(lng), order[bounds[i]:bounds[i + 1]]
+
+
+def _group_buckets(mat, lengths_all, each):
+    """The unique rows of a padded [N, W] uint8 matrix, row i being
+    `mat[i, :lengths_all[i]]`, in global first-occurrence order.  Rows of
+    different lengths never match, so each length bucket is grouped on
+    its own (_unique_rows) and the buckets' keys are then ranked
+    together.  `each(length, unique)` maps a bucket's unique rows [m,
+    length] to a tuple of per-key arrays.  Returns (counts [U], inverse
+    [N], first [U], parts): first[k] is key k's first row, and parts
+    holds each's arrays, the buckets' joined in the keys' order."""
+    inverse = np.empty(len(lengths_all), np.int64)
+    counts, parts = [], []
+    u = 0
+    for lng, idx in _length_buckets(lengths_all):
+        uniq, cnt, inv = _unique_rows(np.ascontiguousarray(mat[idx, :lng]))
+        inverse[idx] = inv + u
+        u += len(cnt)
+        counts.append(cnt)
+        parts.append(each(lng, uniq))
+    first, order, rank = _first_order(inverse, u)
+    return (np.concatenate(counts)[order], rank[inverse], first,
+            [np.concatenate(p)[order] for p in zip(*parts)])
+
+
+def _padded_rows(items):
+    """A list of str/bytes laid into one zero-padded [N, longest] uint8
+    matrix, row i holding item i, and the [N] int64 lengths: the input
+    form of _dedup_reads_ragged and _dedup_umis_ragged."""
+    norm = [x.encode("ascii") if isinstance(x, str) else bytes(x)
+            for x in items]
+    lengths = np.fromiter(map(len, norm), np.int64, len(norm))
+    mat = np.zeros((len(norm), int(lengths.max())), np.uint8)
+    mat[np.arange(mat.shape[1]) < lengths[:, None]] = np.frombuffer(
+        b"".join(norm), np.uint8)
+    return mat, lengths
+
+
+def _dedup_umis_ragged(mat, lengths_all, method, threshold, block, device,
+                       mesh=None):
+    """dedup_umis over UMIs held as a padded [N, W] uint8 matrix and [N]
+    lengths, UMI i being `mat[i, :lengths_all[i]]`: UMIs of different
+    lengths never cluster, so they are grouped one length at a time."""
+    if lengths_all.max() > MAX_64_NT:
+        raise ValueError("UMIs longer than 32 nt are not supported")
+    counts, inverse, first, (umis,) = _group_buckets(
+        mat, lengths_all,
+        lambda lng, uniq: (np.pad(uniq, ((0, 0), (0, MAX_64_NT - lng))),))
+    lengths = lengths_all[first].astype(np.int32)
+    words = _pack_validate_matrix(umis, lengths, device)
+    roots = _cluster_unique(words, lengths, counts, method, threshold,
+                            block=block, mesh=mesh, device=device)
+    labels_u, rep_nodes = _relabel(roots, counts)
+    return labels_u[inverse], [umis[i, :lengths[i]].tobytes()
+                               for i in rep_nodes]
+
+
 def dedup_umis(umis, threshold: int = 1, method: str = "directional",
                _block=None, mesh=None, device=None):
     """Collapse a list of UMIs (str/bytes), or an [N, L] uint8 matrix,
@@ -632,237 +694,48 @@ def dedup_umis(umis, threshold: int = 1, method: str = "directional",
     input i (ids are indices into `representatives`), and
     `representatives[c]` is the highest-count UMI of cluster c (bytes).
     """
-    import collections
-
     if method not in _METHODS:
         raise ValueError(f"Unknown method: {method}")
     device = _dedup_device(device, mesh)
     if len(umis) == 0:
         return np.zeros(0, np.int64), []
-
-    # The matrix path returns None only when the native library is
-    # missing; then retrying it with a rebuilt matrix can never succeed.
-    matrix_unavailable = False
     if isinstance(umis, np.ndarray) and umis.ndim == 2:
         if umis.dtype != np.uint8:
             raise TypeError("array input must be a 2-D uint8 UMI matrix")
-        if umis.shape[1] > MAX_64_NT:
-            raise ValueError("UMIs longer than 32 nt are not supported")
-        res = _dedup_umi_matrix(np.ascontiguousarray(umis), method,
-                                threshold, _block, device, mesh)
-        if res is not None:
-            return res
-        matrix_unavailable = True
-        umis = [umis[i].tobytes() for i in range(len(umis))]
-
-    norm = [u.encode("ascii") if isinstance(u, str) else bytes(u)
-            for u in umis]
-
-    # Uniform lengths take the single-matrix path; ragged lists the
-    # length-bucketed variant.
-    lengths_all = np.fromiter(map(len, norm), np.int64, len(norm))
-    if not matrix_unavailable and int(lengths_all.max()) <= MAX_64_NT:
-        lng = int(lengths_all[0])
-        if (lengths_all == lng).all():
-            res = _dedup_umi_matrix(
-                np.frombuffer(b"".join(norm), np.uint8).reshape(
-                    len(norm), lng),
-                method, threshold, _block, device, mesh)
-        else:
-            res = _dedup_umis_ragged(norm, lengths_all, method, threshold,
-                                     _block, device, mesh)
-        if res is not None:
-            return res
-
-    counter = collections.Counter(norm)
-    uniq = list(counter)
-    index = {u: i for i, u in enumerate(uniq)}
-    inverse = np.fromiter((index[u] for u in norm), np.int64, len(norm))
-    counts = np.fromiter((counter[u] for u in uniq), np.int64, len(uniq))
-
-    words, lengths = _pack_validate_umis(uniq, device)
-    roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=_block, mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    return labels_u[inverse], [uniq[i] for i in rep_nodes]
-
-
-def _dedup_umi_matrix(mat, method, threshold, block, device, mesh=None):
-    """Vectorized dedup_umis for an [N, L] uint8 UMI matrix.  Returns
-    None when the native library is unavailable."""
-    res = _unique_rows(mat)
-    if res is None:
-        return None
-    uniq_mat, counts, inverse = res
-    lengths = np.full(len(counts), mat.shape[1], np.int32)
-    words = _pack_validate_matrix(uniq_mat, lengths, device)
-    roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=block, mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    return labels_u[inverse], [uniq_mat[i].tobytes() for i in rep_nodes]
-
-
-def _length_buckets(lengths_all):
-    """Yield (length, ascending original indices) per distinct length in
-    ascending length order: one stable argsort + searchsorted split.
-    Stability keeps each bucket's indices ascending, which the
-    first-occurrence re-ranking in the ragged paths relies on."""
-    order = np.argsort(lengths_all, kind="stable")
-    sorted_lens = lengths_all[order]
-    uniq_lens = np.unique(sorted_lens)
-    bounds = np.searchsorted(sorted_lens, uniq_lens)
-    bounds = np.append(bounds, len(order))
-    for i, lng in enumerate(uniq_lens):
-        yield int(lng), order[bounds[i]:bounds[i + 1]]
-
-
-def _flat_rows(norm, lengths_all):
-    """One concatenation of a ragged bytes list + row offsets, so each
-    length bucket's matrix is one vectorized numpy gather."""
-    flat = np.frombuffer(b"".join(norm), np.uint8)
-    offsets = np.zeros(len(norm) + 1, np.int64)
-    np.cumsum(lengths_all, out=offsets[1:])
-    return flat, offsets[:-1]
-
-
-def _dedup_umis_ragged(norm, lengths_all, method, threshold, block, device,
-                       mesh=None):
-    """Length-bucketed vectorized dedup_umis for ragged UMI lists: UMIs of
-    different lengths never cluster, so grouping decomposes exactly by
-    length; bucket uniques are re-ranked into global first-occurrence
-    order for dict-path-identical labels and representatives.  Returns
-    None when the native library is unavailable."""
-    n = len(norm)
-    width = 32
-    mats, counts_parts, first_parts, len_parts = [], [], [], []
-    inverse_global = np.empty(n, np.int64)
-    u_total = 0
-    flat, offsets = _flat_rows(norm, lengths_all)
-    for lng, idx in _length_buckets(lengths_all):
-        mat = flat[offsets[idx, None] + np.arange(lng, dtype=np.int64)]
-        res = _unique_rows(mat)
-        if res is None:
-            return None
-        uniq_mat, counts, inverse = res
-        m = len(counts)
-        first = np.empty(m, np.int64)
-        first[inverse[::-1]] = idx[::-1]
-        pad = np.zeros((m, width), np.uint8)
-        pad[:, :lng] = uniq_mat
-        mats.append(pad)
-        counts_parts.append(counts)
-        first_parts.append(first)
-        len_parts.append(np.full(m, lng, np.int32))
-        inverse_global[idx] = inverse + u_total
-        u_total += m
-    first = np.concatenate(first_parts)
-    order = np.argsort(first, kind="stable")
-    rank = np.empty(u_total, np.int64)
-    rank[order] = np.arange(u_total, dtype=np.int64)
-    mat = np.ascontiguousarray(np.concatenate(mats)[order])
-    counts = np.concatenate(counts_parts)[order]
-    lengths = np.concatenate(len_parts)[order]
-    inverse_global = rank[inverse_global]
-    words = _pack_validate_matrix(mat, lengths, device)
-    roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            block=block, mesh=mesh, device=device)
-    labels_u, rep_nodes = _relabel(roots, counts)
-    reps = [mat[i, :lengths[i]].tobytes() for i in rep_nodes]
-    return labels_u[inverse_global], reps
-
-
-def _dedup_reads_matrix(mat, len_5p, len_3p, method, threshold, block,
-                        device, mesh=None):
-    """Vectorized dedup_reads for an [N, L] uint8 read matrix: a unique
-    (insert, UMI) key is exactly a unique read, so grouping is one native
-    hash-count with inverse over the read matrix, and gid assignment a
-    second one over the unique reads' insert columns.  Returns None when
-    the native library is unavailable."""
-    length = mat.shape[1]
-    with named_scope("ssq.umi_group"):
-        res = _unique_rows(mat)
-        if res is None:
-            return None
-        uniq_mat, counts, inverse = res
-        ins_lo, ins_hi = len_5p, length - len_3p
-        res_g = _unique_rows(
-            np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
-        if res_g is None:
-            return None
-        gids = res_g[2]
-        if len_3p:
-            umi_mat = np.ascontiguousarray(np.concatenate(
-                [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1))
-        else:
-            umi_mat = np.ascontiguousarray(uniq_mat[:, :len_5p])
-    lengths = np.full(len(counts), len_5p + len_3p, np.int32)
-    words = _pack_validate_matrix(umi_mat, lengths, device)
-
-    group_sizes = np.bincount(gids)
-    candidates = np.flatnonzero(group_sizes[gids] >= 2)
-    roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            gids=gids, candidates=candidates, block=block,
-                            mesh=mesh, device=device)
-    with named_scope("ssq.umi_collapse"):
-        labels_u, rep_nodes = _relabel(roots, counts)
-        molecules = [(uniq_mat[i, ins_lo:ins_hi].tobytes(),
-                      umi_mat[i].tobytes()) for i in rep_nodes]
-        return labels_u[inverse], molecules
+        mat, lengths = umis, np.full(len(umis), umis.shape[1], np.int64)
+    else:
+        mat, lengths = _padded_rows(umis)
+    return _dedup_umis_ragged(mat, lengths, method, threshold, _block,
+                              device, mesh)
 
 
 def _dedup_reads_ragged(mat, lengths_all, len_5p, len_3p, method,
                         threshold, block, device, mesh=None):
-    """Length-bucketed vectorized dedup_reads for ragged reads, held as a
-    padded [N, W] uint8 matrix and [N] lengths: read i is
-    `mat[i, :lengths_all[i]]`.  Reads of different lengths never share an
-    insert, so grouping decomposes exactly by read length; per-bucket
-    uniques are re-ranked into GLOBAL first-occurrence order so labels and
-    molecules stay identical to the Python dict path.  Returns None when
-    the native library is unavailable."""
-    n = len(lengths_all)
+    """dedup_reads over reads held as a padded [N, W] uint8 matrix and [N]
+    lengths, read i being `mat[i, :lengths_all[i]]`.  A unique (insert,
+    UMI) key is a unique read, and reads of different lengths never share
+    an insert, so both the keys and their inserts are grouped one read
+    length at a time.  The first read shorter than the UMIs raises
+    split_read's error."""
     umi_len = len_5p + len_3p
+    short = np.flatnonzero(lengths_all < umi_len)
+    if short.size:
+        i = short[0]
+        split_read(mat[i, :lengths_all[i]].tobytes(), len_5p, len_3p)
+    groups = 0
+
+    def inserts_and_umis(lng, uniq):
+        nonlocal groups
+        ins = _unique_rows(np.ascontiguousarray(uniq[:, len_5p:lng - len_3p]))
+        gids = ins[2] + groups
+        groups += len(ins[1])
+        return gids, np.concatenate([uniq[:, :len_5p], uniq[:, lng - len_3p:]],
+                                    axis=1)
+
     with named_scope("ssq.umi_group"):
-        umi_parts, counts_parts, gids_parts, first_parts = [], [], [], []
-        inverse_global = np.empty(n, np.int64)
-        gid_offset = 0
-        u_total = 0
-        for lng, idx in _length_buckets(lengths_all):
-            res = _unique_rows(np.ascontiguousarray(mat[idx, :lng]))
-            if res is None:
-                return None
-            uniq_mat, counts, inverse = res
-            m = len(counts)
-            ins_lo, ins_hi = len_5p, lng - len_3p
-            res_g = _unique_rows(
-                np.ascontiguousarray(uniq_mat[:, ins_lo:ins_hi]))
-            if res_g is None:
-                return None
-            # idx is ascending, so within-bucket first occurrence IS the
-            # global one among this bucket's reads.
-            first = np.empty(m, np.int64)
-            first[inverse[::-1]] = idx[::-1]
-            if len_3p:
-                umi_mat = np.concatenate(
-                    [uniq_mat[:, :len_5p], uniq_mat[:, ins_hi:]], axis=1)
-            else:
-                umi_mat = uniq_mat[:, :len_5p]
-            inverse_global[idx] = inverse + u_total
-            umi_parts.append(umi_mat)
-            counts_parts.append(counts)
-            gids_parts.append(res_g[2] + gid_offset)
-            first_parts.append(first)
-            gid_offset += len(res_g[1])
-            u_total += m
-        first = np.concatenate(first_parts)
-        order = np.argsort(first, kind="stable")
-        rank = np.empty(u_total, np.int64)
-        rank[order] = np.arange(u_total, dtype=np.int64)
-        counts = np.concatenate(counts_parts)[order]
-        gids = np.concatenate(gids_parts)[order]
-        umi_mat = np.ascontiguousarray(np.concatenate(umi_parts)[order])
-        first = first[order]
-        inverse_global = rank[inverse_global]
-    lengths = np.full(u_total, umi_len, np.int32)
+        counts, inverse, first, (gids, umi_mat) = _group_buckets(
+            mat, lengths_all, inserts_and_umis)
+    lengths = np.full(len(counts), umi_len, np.int32)
     words = _pack_validate_matrix(umi_mat, lengths, device)
 
     group_sizes = np.bincount(gids)
@@ -882,20 +755,11 @@ def _dedup_reads_ragged(mat, lengths_all, len_5p, len_3p, method,
         molecules = [(rows[k * width + len_5p:k * width + e],
                       umis[k * umi_len:(k + 1) * umi_len])
                      for k, e in enumerate(ends)]
-        return labels_u[inverse_global], molecules
+        return labels_u[inverse], molecules
 
 
 _dedup_reads_ragged.padded_reads = 0
 _dedup_reads_ragged.list_reads = 0
-
-
-def _padded_rows(norm, lengths_all):
-    """A ragged bytes list laid into one zero-padded [N, longest] uint8
-    matrix, row i holding read i: _dedup_reads_ragged's input form."""
-    mat = np.zeros((len(norm), int(lengths_all.max())), np.uint8)
-    mat[np.arange(mat.shape[1]) < lengths_all[:, None]] = np.frombuffer(
-        b"".join(norm), np.uint8)
-    return mat
 
 
 def _check_read_args(len_5p, len_3p, method):
@@ -935,82 +799,24 @@ def dedup_reads(reads, len_5p: int = 0, len_3p: int = 0,
       `molecules[m]` is `(insert_bytes, umi_bytes)` for molecule m (the
       highest-count UMI of its cluster).
     """
-    import collections
-
     _check_read_args(len_5p, len_3p, method)
     device = _dedup_device(device, mesh)
     if len(reads) == 0:
         return np.zeros(0, np.int64), []
-
-    matrix_unavailable = False  # as in dedup_umis
-    if isinstance(reads, np.ndarray) and reads.ndim == 2:
+    matrix = isinstance(reads, np.ndarray) and reads.ndim == 2
+    if matrix:
         if reads.dtype != np.uint8:
             raise TypeError("array input must be a 2-D uint8 read matrix")
-        if reads.shape[1] < len_5p + len_3p:
-            raise ValueError(
-                f"Read of {reads.shape[1]} nt is shorter than the UMI "
-                f"lengths ({len_5p} + {len_3p})")
-        res = _dedup_reads_matrix(np.ascontiguousarray(reads), len_5p,
-                                  len_3p, method, threshold, _block, device,
-                                  mesh)
-        if res is not None:
-            return res
-        matrix_unavailable = True
-        reads = [reads[i].tobytes() for i in range(len(reads))]
-
-    norm = [r.encode("ascii") if isinstance(r, str) else bytes(r)
-            for r in reads]
-
-    # A read shorter than the UMI lengths keeps the Python path so
-    # split_read raises its reference error on the FIRST offending read.
-    lengths_all = np.fromiter(map(len, norm), np.int64, len(norm))
-    if not matrix_unavailable and int(lengths_all.min()) >= len_5p + len_3p:
-        lng = int(lengths_all[0])
-        if (lengths_all == lng).all():
-            res = _dedup_reads_matrix(
-                np.frombuffer(b"".join(norm), np.uint8).reshape(
-                    len(norm), lng),
-                len_5p, len_3p, method, threshold, _block, device, mesh)
-        else:
-            res = _dedup_reads_ragged(_padded_rows(norm, lengths_all),
-                                      lengths_all, len_5p, len_3p, method,
-                                      threshold, _block, device, mesh)
-            if res is not None:
-                _dedup_reads_ragged.list_reads += len(norm)
-        if res is not None:
-            return res
-
-    with named_scope("ssq.umi_group"):
-        gid_of = {}
-        inserts = []
-        keys = []  # per-read (gid, umi)
-        for r in norm:
-            u5, insert, u3 = split_read(r, len_5p, len_3p)
-            gid = gid_of.setdefault(insert, len(gid_of))
-            if gid == len(inserts):
-                inserts.append(insert)
-            keys.append((gid, u5 + u3))
-
-        counter = collections.Counter(keys)
-        uniq = list(counter)
-        index = {k: i for i, k in enumerate(uniq)}
-        inverse = np.fromiter((index[k] for k in keys), np.int64, len(keys))
-        counts = np.fromiter((counter[k] for k in uniq), np.int64, len(uniq))
-        gids = np.fromiter((g for g, _ in uniq), np.int64, len(uniq))
-
-    # Every unique UMI goes through the packed validity check.
-    words, lengths = _pack_validate_umis([u for _, u in uniq], device)
-
-    # Only keys in multi-key groups can merge; everything else roots itself.
-    group_sizes = np.bincount(gids, minlength=len(inserts))
-    candidates = np.flatnonzero(group_sizes[gids] >= 2)
-    roots = _cluster_unique(words, lengths, counts, method, threshold,
-                            gids=gids, candidates=candidates, block=_block,
-                            mesh=mesh, device=device)
-    with named_scope("ssq.umi_collapse"):
-        labels_u, rep_nodes = _relabel(roots, counts)
-        molecules = [(inserts[uniq[i][0]], uniq[i][1]) for i in rep_nodes]
-        return labels_u[inverse], molecules
+        mat, lengths = reads, np.full(len(reads), reads.shape[1], np.int64)
+    else:
+        mat, lengths = _padded_rows(reads)
+    res = _dedup_reads_ragged(mat, lengths, len_5p, len_3p, method,
+                              threshold, _block, device, mesh)
+    if matrix:
+        _dedup_reads_ragged.padded_reads += len(lengths)
+    else:
+        _dedup_reads_ragged.list_reads += len(lengths)
+    return res
 
 
 def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
@@ -1019,13 +825,9 @@ def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
     """UMI read deduplication of a FASTQ file (plain or gzip): the path
     of `python -m shortseq_torch umi`.  The reads are read with
     io.fastq.read_fastq_matrix into one padded uint8 matrix and their
-    lengths.  Reads of one length go to `dedup_reads` as that matrix;
-    ragged reads go from the padded matrix straight to the length-bucketed
-    `_dedup_reads_ragged`, with no per-read bytes object, and are counted on
-    `_dedup_reads_ragged.padded_reads` (reads that `dedup_reads` lays
-    from a list into that form count on `.list_reads`).  A read shorter
-    than the UMIs, or no native hash counter, takes `dedup_reads`' list
-    path, which raises or answers as the reference does.
+    lengths, which go as they are to `_dedup_reads_ragged`, with no
+    per-read bytes object, and are counted on
+    `_dedup_reads_ragged.padded_reads`.
 
     Returns (molecules, reads_per_molecule): `molecules[m]` is
     `(insert_bytes, umi_bytes)` as `dedup_reads` gives it, and
@@ -1038,24 +840,11 @@ def dedup_fastq(filename, len_5p: int = 0, len_3p: int = 0,
             mat, lengths = read_fastq_matrix(filename, pad_to=1)
         _check_read_args(len_5p, len_3p, method)
         device = _dedup_device(device, None)
-        uniform = bool(len(lengths)) and bool((lengths == lengths[0]).all())
-        res = None
-        if (len(lengths) and not uniform
-                and int(lengths.min()) >= len_5p + len_3p):
-            res = _dedup_reads_ragged(mat, lengths, len_5p, len_3p, method,
-                                      threshold, None, device)
-            if res is not None:
-                _dedup_reads_ragged.padded_reads += len(lengths)
-        if res is None:
-            if uniform:
-                reads = np.ascontiguousarray(mat[:, :lengths[0]])
-            else:
-                reads = [mat[i, :lengths[i]].tobytes()
-                         for i in range(len(lengths))]
-            res = dedup_reads(reads, len_5p=len_5p, len_3p=len_3p,
-                              threshold=threshold, method=method,
-                              device=device)
-        labels, molecules = res
+        if not len(lengths):
+            return [], np.zeros(0, np.int64)
+        labels, molecules = _dedup_reads_ragged(
+            mat, lengths, len_5p, len_3p, method, threshold, None, device)
+        _dedup_reads_ragged.padded_reads += len(lengths)
         with named_scope("ssq.umi_collapse"):
             reads_per_molecule = np.bincount(labels,
                                              minlength=len(molecules))

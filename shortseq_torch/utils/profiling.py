@@ -35,20 +35,23 @@ The UMI path marks its stages alike; one call of umi.dedup.dedup_fastq
   ssq.umi_dedup       dedup_fastq: the root of one call
     ssq.umi_read      read_fastq_matrix: the padded read matrix and
                       its lengths
-    ssq.umi_group     the native _unique_rows passes, the length buckets
-                      and the re-rank into first-occurrence order
+    ssq.umi_group     the _unique_rows passes (native, or numpy without
+                      the native library), the length buckets and the
+                      re-rank into first-occurrence order
     ssq.umi_pack      kernel A with its copies (_pack_validate_matrix)
     ssq.umi_neighbors _neighbor_lists: kernel H, the overflow tier, the
                       fetch and the per-row split
     ssq.umi_collapse  _edge_csr, the walk, _relabel, the molecule tuples
                       and the reads per molecule (more than one a call)
 
-dedup_reads and dedup_umis called alone open the same stages with no
-root.  `_neighbor_lists` counts its work on itself (`.rows`, `.pairs`,
-`.group_pairs`, `.overflow_rows`, `.edges`, `.umi_lanes`; umi/dedup.py),
-and the ragged read path `_dedup_reads_ragged` the reads it took by
-their form: `.padded_reads` (a padded matrix, dedup_fastq's) and
-`.list_reads` (a list that dedup_reads laid into that form).
+dedup_reads called alone opens the same stages with no root, and
+dedup_umis all of them but ssq.umi_group.  `_neighbor_lists` counts its
+work on itself (`.rows`, `.pairs`, `.group_pairs`, `.overflow_rows`,
+`.edges`, `.umi_lanes`; umi/dedup.py), and the one read path
+`_dedup_reads_ragged` every read it took, by the form it came in:
+`.padded_reads` (a padded matrix taken as it is: every read of
+dedup_fastq, and a uint8 matrix given to dedup_reads) and `.list_reads`
+(a list that dedup_reads laid into that form).
 
 ssq.h2d and ssq.d2h open wherever a copy is made (on a CPU device too,
 where nothing crosses); ssq.to_counter is a root of its own when called

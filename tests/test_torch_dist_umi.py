@@ -90,6 +90,14 @@ def fans():
     return fan_umis(8, 12, seed=5)
 
 
+def packed(uniq):
+    """The UMIs `uniq` packed by the port on the CPU: ([U, W] words, [U]
+    int32 lengths)."""
+    mat, lengths = td._padded_rows(uniq)
+    lengths = lengths.astype(np.int32)
+    return td._pack_validate_matrix(mat, lengths, "cpu"), lengths
+
+
 _WORKER = r"""
 import json, sys
 for name in ("jax", "jaxlib", "shortseq_tpu"):
@@ -116,7 +124,7 @@ def dedup(fn, *args, **kwargs):
 
 umis, _, _ = cases.pool_umis(21)
 uniq = sorted(set(umis))
-words, lengths = td._pack_validate_umis(uniq, "cpu")
+words, lengths = cases.packed(uniq)
 res["lists"] = [x.tolist() for x in
                 td._neighbor_lists(words, lengths, 1, mesh=mesh)]
 for seed, method, thr in cases.DEDUP_CASES:
@@ -285,7 +293,7 @@ def test_mesh_of_one_equals_no_mesh(case):
         args, fn, kwargs = (umi_reads(),), td.dedup_reads, {"len_5p": 10}
     else:
         uniq = sorted(set(pool_umis(21)[0]))
-        words, lengths = td._pack_validate_umis(uniq, "cpu")
+        words, lengths = packed(uniq)
         got = td._neighbor_lists(words, lengths, 1, mesh=mesh)
         want = td._neighbor_lists(words, lengths, 1, device="cpu")
         assert [x.tolist() for x in got] == [x.tolist() for x in want]
@@ -314,7 +322,7 @@ def test_step_alone_and_its_padding_check():
 
     mesh = sd.data_mesh(device="cpu")
     uniq = sorted(set(pool_umis(21)[0]))
-    words, lengths = td._pack_validate_umis(uniq, "cpu")
+    words, lengths = packed(uniq)
     u = len(uniq)
     w = torch.zeros((512, 2), dtype=torch.int32)
     w[:u] = words

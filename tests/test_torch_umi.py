@@ -1,9 +1,10 @@
 """shortseq_torch dedup_umis / dedup_reads / the `umi` CLI against the JAX
 package on identical inputs: labels and representatives (or molecules)
-must be identical, on the matrix, ragged and Python-dict grouping paths,
-for every method and thresholds 1 and 2.  Mirrors tests/test_umi.py:
-322-545.  The port runs with device="cpu" here (plain PyTorch versions of
-its kernels); the card's run is checked against the CPU's at the end."""
+must be identical, on matrix, ragged and list inputs, with and without
+the native hash counter, for every method and thresholds 1 and 2.
+Mirrors tests/test_umi.py:322-545.  The port runs with device="cpu" here
+(plain PyTorch versions of its kernels); the card's run is checked
+against the CPU's at the end."""
 
 import numpy as np
 import pytest
@@ -63,8 +64,11 @@ def _reads(seed, len_5p, len_3p, insert_lens=(12,), n=800, n_mol=60):
 
 
 def _no_native(monkeypatch):
-    """Both packages on their Python dict paths."""
-    monkeypatch.setattr(td, "_unique_rows", lambda mat: None)
+    """The port without its native hash counter (its numpy grouping), the
+    JAX package on its Python dict path."""
+    import shortseq_torch.io.native as tn
+
+    monkeypatch.setattr(tn, "host_count_native", lambda *a, **k: None)
     monkeypatch.setattr(jd, "_unique_rows", lambda mat: None)
 
 
@@ -193,7 +197,7 @@ def test_read_fastq_matrix_matches_jax(tmp_path, monkeypatch, gz):
 
 
 #: name: (len_5p, len_3p, insert lengths); one insert length is a file
-#: of one read length, which takes the matrix route.
+#: of one read length, a padded matrix of one length bucket.
 FASTQ_CASES = {"3p": (0, 12, (18, 21, 25)), "both_ends": (4, 6, (9, 14)),
                "one_length": (0, 12, (20,))}
 
@@ -205,7 +209,8 @@ def test_dedup_fastq_matches_reads_and_jax(tmp_path, capsys, monkeypatch,
     """dedup_fastq (the padded matrix from the file to the molecules)
     equals dedup_reads on the list of the same reads, and the JAX
     package's dedup_reads and CLI; without the native hash counter it
-    falls back to the list path and still does."""
+    groups in numpy and still does.  Every read of the file counts as
+    taken in padded form."""
     import shortseq_torch.io.native as tn
 
     len_5p, len_3p, inserts = FASTQ_CASES[case]
@@ -218,8 +223,7 @@ def test_dedup_fastq_matches_reads_and_jax(tmp_path, capsys, monkeypatch,
         monkeypatch.setattr(tn, "host_count_native", lambda *a, **k: None)
     padded = td._dedup_reads_ragged.padded_reads
     got, per_molecule = td.dedup_fastq(str(path), device="cpu", **kw)
-    assert td._dedup_reads_ragged.padded_reads - padded == (
-        len(reads) if native and len(inserts) > 1 else 0)
+    assert td._dedup_reads_ragged.padded_reads - padded == len(reads)
     assert got == molecules
     np.testing.assert_array_equal(
         per_molecule, np.bincount(labels, minlength=len(molecules)))
@@ -273,6 +277,33 @@ def test_dedup_fastq_short_read_raises_reference_error(tmp_path, capsys):
     want = capsys.readouterr()
     assert torch_main(argv + ["--device", "cpu"]) == 2
     assert capsys.readouterr() == want
+
+
+@pytest.mark.parametrize("width", [0, 1, 3, 4, 8, 13, 37])
+def test_unique_rows_numpy_matches_native(monkeypatch, width):
+    """_unique_rows without the native hash counter returns the native
+    triple: the unique rows, their counts and every row's key, in first
+    occurrence order, on rows of any byte (zero bytes too) and at widths
+    that are and are not whole 32-bit words."""
+    import shortseq_torch.io.native as tn
+
+    assert tn.get_lib() is not None
+    rng = np.random.default_rng(40 + width)
+    pool = rng.integers(0, 256, size=(60, width), dtype=np.uint8)
+    pool[:20] = ALPHA[rng.integers(0, 4, size=(20, width))]
+    pool[20:25] = 0
+    mat = pool[rng.integers(0, 60, size=900)]
+    native = td._unique_rows(mat)
+    monkeypatch.setattr(tn, "host_count_native", lambda *a, **k: None)
+    fallback = td._unique_rows(mat)
+    for got, want in zip(fallback, native):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    uniq, counts, inverse = native
+    np.testing.assert_array_equal(uniq[inverse], mat)
+    np.testing.assert_array_equal(counts, np.bincount(inverse))
+    firsts = np.unique(inverse, return_index=True)[1]
+    assert (np.diff(firsts) > 0).all()
 
 
 @pytest.mark.parametrize("directional", [False, True])

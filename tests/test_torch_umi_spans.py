@@ -129,11 +129,10 @@ def test_neighbor_counters(traced, name):
 
 
 def test_ragged_path_counts_the_padded_matrix(traced):
-    """A ragged file reaches _dedup_reads_ragged as read_fastq_matrix's padded
-    matrix; a file of one read length takes the matrix route."""
+    """Every file, ragged or of one read length, reaches
+    _dedup_reads_ragged as read_fastq_matrix's padded matrix."""
     _, grown = traced
-    n = len(_reads(grown["ragged"]))
-    assert grown["padded_reads"] == (n if grown["ragged"] else 0)
+    assert grown["padded_reads"] == len(_reads(grown["ragged"]))
     assert grown["list_reads"] == 0
 
 
