@@ -1024,7 +1024,9 @@ def overflow_tier(torch, lines, extras=True, reps=11, other=None):
     # The plain version on the CPU last: its threads would slow the walls.
     want = dedup._neighbor_lists(words.cpu(), lengths, 2, device="cpu") \
         if extras else next(iter(lists.values()))
+    want = csr_rows(want)
     for name, got in lists.items():
+        got = csr_rows(got)
         if len(got) != len(want) or not all(
                 np.array_equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"overflow tier ({name}) differs")
@@ -1042,6 +1044,22 @@ def overflow_tier(torch, lines, extras=True, reps=11, other=None):
                 torch, lambda mod=mod, budget=budget: run(mod, budget),
                 ("pairwise", "neighbor_extract"), runs=1)
         lines.append(line)
+
+
+def csr_rows(nbrs):
+    """The rows of _neighbor_lists' CSR as a list of int64 arrays, after
+    checking its form: int64 offsets from 0 to len(indices), one a row and
+    never falling, and each row's columns strictly ascending."""
+    import numpy as np
+
+    indptr, indices = nbrs.indptr, nbrs.indices
+    assert indptr.dtype == indices.dtype == np.int64
+    assert len(nbrs) == len(indptr) - 1
+    assert indptr[0] == 0 and indptr[-1] == len(indices)
+    assert (np.diff(indptr) >= 0).all()
+    rows = np.split(indices, indptr[1:-1]) if len(nbrs) else []
+    assert all((np.diff(r) > 0).all() for r in rows)
+    return rows
 
 
 def quartiles(xs):
@@ -2855,28 +2873,20 @@ def phase_umi_scale(torch, main_path):
     has_rep = np.unique(labels[(umi_mat == rep_mat[labels]).all(axis=1)])
     assert len(has_rep) == len(reps), (len(has_rep), len(reps))
 
-    # A 512-row slab of the neighbour lists against the plain dense check;
-    # the lists' wall, and the host's split of the fetched lists into one
-    # array per row timed alone on the same lists.
+    # A 512-row slab of the neighbour lists (one CSR) against the plain
+    # dense check, and the lists' wall.
     words, lengths = pack_umis(uniq)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nbrs = dedup._neighbor_lists(words, lengths, 1, device="cuda")
     lists_s = time.perf_counter() - t0
-    flat = np.concatenate(nbrs)
-    ends = np.cumsum([len(x) for x in nbrs])[:-1]
-    split_times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        np.split(flat, ends)
-        split_times.append(time.perf_counter() - t0)
-    split_s = statistics.median(split_times)
+    rows = csr_rows(nbrs)
     lo = int(np.random.default_rng(7).integers(0, len(uniq) - 512))
     dense = (hamming_pairwise(words[lo:lo + 512], words) <= 1).cpu().numpy()
     for r in range(512):
         want = np.setdiff1d(np.flatnonzero(dense[r]), [lo + r])
-        assert np.array_equal(np.asarray(nbrs[lo + r]), want), lo + r
-    edges = sum(len(x) for x in nbrs)
+        assert np.array_equal(rows[lo + r], want), lo + r
+    edges = len(nbrs.indices)
 
     # A 5,000-unique problem with real clusters (half the UMIs are one
     # substitution from another), identical on the card and on the CPU.
@@ -2905,9 +2915,8 @@ def phase_umi_scale(torch, main_path):
     want = dedup.dedup_umis(fans, threshold=2, device="cpu")
     assert np.array_equal(over[0], want[0]) and over[1] == want[1]
     return (f"wall {wall:.3f} s for {n} UMIs ({len(uniq)} unique) -> "
-            f"{len(reps)} clusters; _neighbor_lists {lists_s:.3f} s; "
-            f"np.split into {len(nbrs)} lists alone {split_s:.3f} s "
-            f"(median of 3); slab "
+            f"{len(reps)} clusters; _neighbor_lists {lists_s:.3f} s for "
+            f"{len(nbrs)} rows; slab "
             f"rows {lo}..{lo + 511} exact ({edges} edges in all); 5k "
             f"problem: {len(got[1])} clusters, equal to cpu; {len(fans)} "
             f"fan UMIs at threshold 2: {len(over[1])} clusters, equal to "

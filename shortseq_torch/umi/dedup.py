@@ -29,7 +29,7 @@ Pipeline:
               it; every batch queued, one fetch), and rows beyond that
               take a dense mask fetch.  With `mesh=`, kernel H's rows split
               into one band a rank (dist/umi.py), gathered in rank order.
-  collapse  - host graph walk over the sparse lists, O(edges).
+  collapse  - host graph walk over the lists, one CSR, O(edges).
 
 `dedup_fastq` is the CLI's path (`python -m shortseq_torch umi`): a FASTQ
 file read into a padded matrix, then the grouping over that matrix.  One
@@ -343,12 +343,27 @@ def neighbor_lists_fused(a_words, a_lengths, a_gids, a_rows, words, lengths,
 neighbor_lists_fused.launches = 0
 
 
+class _NeighborCsr:
+    """Neighbour lists as one CSR: row i's neighbours are
+    indices[indptr[i]:indptr[i + 1]] (int64, ascending); len() is the
+    row count."""
+
+    __slots__ = ("indptr", "indices")
+
+    def __init__(self, indptr, indices):
+        self.indptr, self.indices = indptr, indices
+
+    def __len__(self):
+        return len(self.indptr) - 1
+
+
 @scoped("ssq.umi_neighbors")
 def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
                     mesh=None, *, device=None):
-    """Sparse adjacency: neighbours[i] = indices j != i with
-    hamming(i, j) <= threshold, equal lengths, and (optionally) equal
-    group ids.  `words` is an int32 tensor or a numpy uint32 array.
+    """Sparse adjacency as one _NeighborCsr: row i's neighbours are the
+    indices j != i with hamming(i, j) <= threshold, equal lengths, and
+    (optionally) equal group ids, ascending, as the JAX package lists
+    them.  `words` is an int32 tensor or a numpy uint32 array.
     The main pass is one call of kernel H over all rows on `device`: no
     distance slab is written, and host memory and transfer are
     O(U * k + edges), never O(U^2).  Rows with more than k neighbours
@@ -359,11 +374,11 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
     With a mesh (dist.data_mesh), the main pass splits into row bands over
     its ranks (dist/umi.py) on mesh.device, and every rank then runs the
     overflow tier on the gathered counts, so all ranks return the same
-    lists; every rank calls with the same operands."""
+    CSR; every rank calls with the same operands."""
     device = _dedup_device(device, mesh)
     u = len(lengths)
     if u == 0:
-        return []
+        return _NeighborCsr(np.zeros(1, np.int64), np.zeros(0, np.int64))
     lengths = np.asarray(lengths)
     if block is None:
         block = max(256, min(u, _PAIR_BUDGET // max(u, 1)))
@@ -410,12 +425,15 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
         idx, cnt = idx.cpu().numpy(), cnt.cpu().numpy()
     # Empty slots carry the padded column count (the mesh's, with a mesh).
     valid = idx < u_pad
-
-    # Columns come out ascending per row; boolean masking flattens
-    # row-major, so one mask + split materializes every per-row list.
-    flat = idx[valid]
-    neighbors = np.split(flat, np.cumsum(valid.sum(axis=1))[:-1])
-    edges = flat.size
+    # Every tier gives (row, column) pairs, rows ascending and each row's
+    # columns ascending (boolean masking flattens row-major), so one stable
+    # sort by row splices them into the CSR, in place of the overflow
+    # rows' main-pass slots.
+    over = np.flatnonzero(cnt > k)
+    _neighbor_lists.overflow_rows += over.size
+    valid[over] = False
+    rows = [np.repeat(np.arange(u), valid.sum(axis=1))]
+    cols = [idx[valid]]
 
     # Rows with more than k neighbours are re-extracted at a larger cap:
     # their ids go to `device` once, each batch's kernel B (into one shared
@@ -425,8 +443,6 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
     # even k2 (threshold >= 2 pathologies; threshold 1 is bounded by
     # 3L <= 96 < _OVERFLOW_K) take one dense mask fetch per batch of
     # _DENSE_ROWS_BATCH.
-    over = np.flatnonzero(cnt > k)
-    _neighbor_lists.overflow_rows += over.size
     if over.size:
         k2 = min(_OVERFLOW_K, u_pad)
         n_over = over.size
@@ -446,13 +462,10 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
                              out=(idx2[lo:hi], cnt2[lo:hi]))
         idx2, cnt2 = idx2.cpu().numpy(), cnt2.cpu().numpy()
         fits = cnt2 <= k2
-        # One mask over the rows that fit, then a slice of it per row.
-        sub = idx2 if fits.all() else idx2[fits]
+        sub = idx2[fits]
         keep = sub < u_pad
-        flat2 = sub[keep]
-        ends = np.cumsum(keep.sum(axis=1)).tolist()
-        for r, a, b in zip(over[fits].tolist(), [0] + ends[:-1], ends):
-            neighbors[r] = flat2[a:b]
+        rows.append(np.repeat(over[fits], keep.sum(axis=1)))
+        cols.append(sub[keep])
         still = over[~fits]
         still_d = torch.from_numpy(still.astype(np.int32)).to(device)
         for lo in range(0, still.size, _DENSE_ROWS_BATCH):
@@ -461,11 +474,16 @@ def _neighbor_lists(words, lengths, threshold, gids=None, block=None,
             hamming_pairwise_tiled(words_d[sel], words_d, out=part)
             adj = _adjacency(part, lengths_d[sel], gids_d[sel], sel,
                              lengths_d, gids_d, threshold).cpu().numpy()
-            for i, r in enumerate(still[lo:lo + _DENSE_ROWS_BATCH]):
-                neighbors[r] = np.flatnonzero(adj[i][:u])
-        edges = sum(map(len, neighbors))
-    _neighbor_lists.edges += int(edges)
-    return neighbors
+            r, c = np.nonzero(adj[:, :u])
+            rows.append(still[lo:lo + _DENSE_ROWS_BATCH][r])
+            cols.append(c)
+    rows = np.concatenate(rows)
+    indptr = np.zeros(u + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=u), out=indptr[1:])
+    indices = np.concatenate(cols).astype(np.int64)[
+        np.argsort(rows, kind="stable")]
+    _neighbor_lists.edges += len(indices)
+    return _NeighborCsr(indptr, indices)
 
 
 _neighbor_lists.rows = 0
@@ -476,34 +494,19 @@ _neighbor_lists.edges = 0
 _neighbor_lists.umi_lanes = 0
 
 
-# --- Host collapse (unchanged from the JAX package) -------------------------
+# --- Host collapse (the JAX package's, over a CSR) -------------------------
 
 
-def _edge_csr(neighbors):
-    """Sparse lists -> CSR (indptr [U+1] int64, indices [E] int64)."""
-    u = len(neighbors)
-    deg = np.fromiter(map(len, neighbors), np.int64, u)
-    indptr = np.zeros(u + 1, np.int64)
-    np.cumsum(deg, out=indptr[1:])
-    if int(indptr[-1]) == 0:
-        return indptr, np.zeros(0, np.int64)
-    indices = np.concatenate([np.asarray(x, np.int64)
-                              for x in neighbors if len(x)])
-    return indptr, indices
-
-
-def _components(neighbors):
-    """Connected components over sparse lists; each node's label is its
+def _components(nbrs):
+    """Connected components over a _NeighborCsr; each node's label is its
     component's MINIMUM node index.  Vectorized min-label propagation
     with pointer-jumping path compression."""
-    u = len(neighbors)
+    u = len(nbrs)
     labels = np.arange(u, dtype=np.int64)
-    if u == 0:
-        return labels
-    indptr, dst = _edge_csr(neighbors)
+    dst = nbrs.indices
     if len(dst) == 0:
         return labels
-    src = np.repeat(np.arange(u, dtype=np.int64), np.diff(indptr))
+    src = np.repeat(np.arange(u, dtype=np.int64), np.diff(nbrs.indptr))
     while True:
         m = labels.copy()
         # Adjacency is symmetric, so one directed pass reaches both ends.
@@ -520,23 +523,23 @@ def _components(neighbors):
         labels = m
 
 
-def _greedy_absorb(neighbors, counts, directional: bool):
-    """adjacency / directional collapse over sparse lists: iterate nodes by
-    descending count; an unassigned node roots a cluster and absorbs
+def _greedy_absorb(nbrs, counts, directional: bool):
+    """adjacency / directional collapse over a _NeighborCsr: iterate nodes
+    by descending count; an unassigned node roots a cluster and absorbs
     unassigned neighbours (direct only for adjacency; BFS through
     count-ordered edges for directional, edge u->v iff
     counts[u] >= 2 * counts[v] - 1).  Runs in the native library when
     built; the Python loop below is its behavioural twin."""
     from ..io.native import greedy_absorb_native
 
-    u = len(neighbors)
+    u = len(nbrs)
     counts = np.asarray(counts, np.int64)
     order = np.argsort(-counts, kind="stable")
-    indptr, indices = _edge_csr(neighbors)
-    native = greedy_absorb_native(indptr, indices, counts, order,
+    native = greedy_absorb_native(nbrs.indptr, nbrs.indices, counts, order,
                                   directional)
     if native is not None:
         return native
+    indptr, indices = nbrs.indptr.tolist(), nbrs.indices.tolist()
     labels = np.full(u, -1, np.int64)
     for root in order:
         if labels[root] >= 0:
@@ -545,7 +548,7 @@ def _greedy_absorb(neighbors, counts, directional: bool):
         frontier = [root]
         while frontier:
             node = frontier.pop()
-            for nbr in neighbors[node]:
+            for nbr in indices[indptr[node]:indptr[node + 1]]:
                 if labels[nbr] >= 0:
                     continue
                 if directional and counts[node] < 2 * counts[nbr] - 1:
@@ -556,10 +559,10 @@ def _greedy_absorb(neighbors, counts, directional: bool):
     return labels
 
 
-def _collapse(neighbors, counts, method):
+def _collapse(nbrs, counts, method):
     if method == "cluster":
-        return _components(neighbors)
-    return _greedy_absorb(neighbors, counts, method == "directional")
+        return _components(nbrs)
+    return _greedy_absorb(nbrs, counts, method == "directional")
 
 
 def _relabel(roots, counts):
@@ -606,11 +609,11 @@ def _cluster_unique(words, lengths, counts, method, threshold, gids=None,
     if len(candidates) < u:
         words = words[torch.from_numpy(candidates).to(words.device)]
     sub_gids = gids[candidates] if gids is not None else None
-    neighbors = _neighbor_lists(words, lengths[candidates], threshold,
-                                gids=sub_gids, block=block, mesh=mesh,
-                                device=device)
+    nbrs = _neighbor_lists(words, lengths[candidates], threshold,
+                           gids=sub_gids, block=block, mesh=mesh,
+                           device=device)
     with named_scope("ssq.umi_collapse"):
-        sub_roots = _collapse(neighbors, counts[candidates], method)
+        sub_roots = _collapse(nbrs, counts[candidates], method)
         roots[candidates] = candidates[sub_roots]
     return roots
 

@@ -40,8 +40,8 @@ The UMI path marks its stages alike; one call of umi.dedup.dedup_fastq
                       re-rank into first-occurrence order
     ssq.umi_pack      kernel A with its copies (_pack_validate_matrix)
     ssq.umi_neighbors _neighbor_lists: kernel H, the overflow tier, the
-                      fetch and the per-row split
-    ssq.umi_collapse  _edge_csr, the walk, _relabel, the molecule tuples
+                      fetch and the lists' CSR
+    ssq.umi_collapse  the walk over that CSR, _relabel, the molecule tuples
                       and the reads per molecule (more than one a call)
 
 dedup_reads called alone opens the same stages with no root, and

@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 
 import shortseq_torch.umi.dedup as td
-from chip_smoke import fan_umis
+from chip_smoke import csr_rows, fan_umis
 from shortseq_torch import dist as sd
 from tests.conftest import REPO_ROOT
 
@@ -126,7 +126,8 @@ umis, _, _ = cases.pool_umis(21)
 uniq = sorted(set(umis))
 words, lengths = cases.packed(uniq)
 res["lists"] = [x.tolist() for x in
-                td._neighbor_lists(words, lengths, 1, mesh=mesh)]
+                cases.csr_rows(td._neighbor_lists(words, lengths, 1,
+                                                  mesh=mesh))]
 for seed, method, thr in cases.DEDUP_CASES:
     res[f"umis_{seed}"] = dedup(td.dedup_umis, cases.pool_umis(seed)[0],
                                 threshold=thr, method=method)
@@ -294,8 +295,8 @@ def test_mesh_of_one_equals_no_mesh(case):
     else:
         uniq = sorted(set(pool_umis(21)[0]))
         words, lengths = packed(uniq)
-        got = td._neighbor_lists(words, lengths, 1, mesh=mesh)
-        want = td._neighbor_lists(words, lengths, 1, device="cpu")
+        got = csr_rows(td._neighbor_lists(words, lengths, 1, mesh=mesh))
+        want = csr_rows(td._neighbor_lists(words, lengths, 1, device="cpu"))
         assert [x.tolist() for x in got] == [x.tolist() for x in want]
         return
     got = fn(*args, mesh=mesh, **kwargs)
@@ -331,7 +332,8 @@ def test_step_alone_and_its_padding_check():
     gids = torch.zeros(512, dtype=torch.int32)
     idx, cnt = sd.neighbors_sharded_step(mesh, 1, 16, 256)(w, ln, gids, u)
     assert idx.shape == (u, 16) and cnt.shape == (u,)
-    want = td._neighbor_lists(words, lengths, 1, block=256, device="cpu")
+    want = csr_rows(td._neighbor_lists(words, lengths, 1, block=256,
+                                       device="cpu"))
     assert [r[r < 512].tolist() for r in idx] == [x.tolist() for x in want]
     assert cnt.tolist() == [len(x) for x in want]
     with pytest.raises(ValueError, match="multiple of 1 ranks x block 384"):

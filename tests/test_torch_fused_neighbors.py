@@ -14,6 +14,7 @@ import torch
 import shortseq_torch.umi.dedup as td
 import shortseq_tpu.umi.dedup as jd
 from shortseq_torch.ops.lanes import from_numpy_u32
+from chip_smoke import csr_rows
 
 ALPHA = np.frombuffer(b"ACGT", np.uint8)
 
@@ -133,8 +134,11 @@ def test_neighbor_lists_fans_match_jax(block):
     words, lengths = jd._pack_validate_umis(umis)
     words = np.asarray(words)
     gids = np.arange(len(umis)) // 25 % 2      # one group id per fan
-    got = td._neighbor_lists(words, lengths, 2, gids=gids, block=block,
-                             device="cpu")
+    edges = td._neighbor_lists.edges
+    nbrs = td._neighbor_lists(words, lengths, 2, gids=gids, block=block,
+                              device="cpu")
+    assert td._neighbor_lists.edges - edges == len(nbrs.indices)
+    got = csr_rows(nbrs)
     want = jd._neighbor_lists(words, lengths, 2, gids=gids, block=block)
     assert len(got) == len(want)
     for g, w_ in zip(got, want):
@@ -151,9 +155,13 @@ def test_main_pass_writes_no_slab(monkeypatch):
 
     monkeypatch.setattr(td, "hamming_pairwise_tiled", no_slab)
     words, lengths, gids = _fans(200, 2, seed=9, bases=50)
-    got = td._neighbor_lists(words, np.full(200, 12), 1, device="cpu")
+    edges = td._neighbor_lists.edges
+    nbrs = td._neighbor_lists(words, np.full(200, 12), 1, device="cpu")
+    assert td._neighbor_lists.edges - edges == len(nbrs.indices) > 0
+    got = csr_rows(nbrs)
     assert max(map(len, got)) <= td._NEIGHBOR_K
     want = jd._neighbor_lists(words, np.full(200, 12), 1)
+    assert len(got) == len(want)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g, np.int64),
                                       np.asarray(w_, np.int64))
@@ -188,11 +196,12 @@ def test_main_pass_launches_h_only_on_card(cuda):
 
     words, _, _ = _fans(4000, 2, seed=4, bases=400)
     lengths = np.full(4000, 12)
-    want = td._neighbor_lists(words, lengths, 1, device="cpu")
+    want = csr_rows(td._neighbor_lists(words, lengths, 1, device="cpu"))
     h, b = td.neighbor_lists_fused.launches, hamming_pairwise_tiled.launches
-    got = td._neighbor_lists(words, lengths, 1, device=cuda)
+    got = csr_rows(td._neighbor_lists(words, lengths, 1, device=cuda))
     assert td.neighbor_lists_fused.launches == h + 1
     if max(map(len, want)) <= td._NEIGHBOR_K:
         assert hamming_pairwise_tiled.launches == b
+    assert len(got) == len(want)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w_))

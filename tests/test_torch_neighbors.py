@@ -11,7 +11,7 @@ import torch
 
 import shortseq_torch.umi.dedup as td
 import shortseq_tpu.umi.dedup as jd
-from chip_smoke import c_edge_slab
+from chip_smoke import c_edge_slab, csr_rows
 
 ALPHA = np.frombuffer(b"ACGT", np.uint8)
 
@@ -43,6 +43,8 @@ def _variant_umis(u, length, seed, frac=0.5):
 
 
 def _assert_lists_equal(got, want):
+    """The port's CSR `got`, row by row, against the lists `want`."""
+    got = csr_rows(got)
     assert len(got) == len(want)
     for r, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(np.asarray(g, np.int64),
@@ -86,8 +88,8 @@ def test_overflow_tier_matches_jax(monkeypatch):
     got = td._neighbor_lists(words, lengths, 2, device="cpu")
     want = jd._neighbor_lists(words, lengths, 2)
     _assert_lists_equal(got, want)
-    _assert_lists_equal(got, full)
-    assert max(map(len, full)) > 2      # the cap really overflowed
+    _assert_lists_equal(got, csr_rows(full))
+    assert np.diff(full.indptr).max() > 2   # the cap really overflowed
 
 
 def test_dense_tier_matches_jax(monkeypatch):
@@ -99,8 +101,8 @@ def test_dense_tier_matches_jax(monkeypatch):
     got = td._neighbor_lists(words, lengths, 2, device="cpu")
     want = jd._neighbor_lists(words, lengths, 2)
     _assert_lists_equal(got, want)
-    _assert_lists_equal(got, full)
-    assert max(map(len, full)) > 3      # the dense tier really ran
+    _assert_lists_equal(got, csr_rows(full))
+    assert np.diff(full.indptr).max() > 3   # the dense tier really ran
 
 
 @pytest.mark.parametrize("caps", [(2, 3, 3), (1, 4, 2)])
@@ -111,7 +113,7 @@ def test_overflow_batches_and_dense_tier_match_jax(monkeypatch, caps):
     k, k2, rows = caps
     words, lengths = _packed(_variant_umis(40, 5, seed=11, frac=0.8))
     full = td._neighbor_lists(words, lengths, 2, device="cpu")
-    deg = np.array([len(x) for x in full])
+    deg = np.diff(full.indptr)
     assert (deg > k2).sum() >= 2 and ((deg > k) & (deg <= k2)).sum() >= 2
     assert (deg > k).sum() >= 3 * rows      # at least three overflow batches
     for mod in (td, jd):
@@ -130,11 +132,80 @@ def test_overflow_batches_and_dense_tier_match_jax(monkeypatch, caps):
     got = td._neighbor_lists(words, lengths, 2, device="cpu")
     want = jd._neighbor_lists(words, lengths, 2)
     _assert_lists_equal(got, want)
-    _assert_lists_equal(got, full)
+    _assert_lists_equal(got, csr_rows(full))
     n_over, n_dense = (deg > k).sum(), (deg > k2).sum()
     assert slabs == [rows] * (n_over // rows) + [n_over % rows] * bool(
         n_over % rows) + [rows] * (n_dense // rows) + [n_dense % rows] * bool(
         n_dense % rows)
+
+
+def _fan(base, doubles=False):
+    """`base` and each of its single-substitution variants, and with
+    `doubles` each double-substitution one too (all distinct)."""
+    out = [base]
+    for i, a in enumerate(base):
+        for c in ALPHA:
+            if c != a:
+                v = bytearray(base)
+                v[i] = c
+                out.append(bytes(v))
+                for j in range(i + 1, len(base) if doubles else 0):
+                    for c2 in ALPHA:
+                        if c2 != base[j]:
+                            v2 = bytearray(v)
+                            v2[j] = c2
+                            out.append(bytes(v2))
+    return out
+
+
+def _random_umis(n, length, seed):
+    rng = np.random.default_rng(seed)
+    return list(dict.fromkeys(ALPHA[rng.integers(0, 4, size=(n, length))][i]
+                              .tobytes() for i in range(n)))
+
+
+def _splice_case(name):
+    """(UMIs, rows that must go over the main cap at threshold 2)."""
+    rng = np.random.default_rng(len(name))
+    bases = _random_umis(3, 12, seed=21)
+    if name == "dense":
+        # One 8-nt fan with its double substitutions (its base has 276
+        # neighbours, over _OVERFLOW_K), one 12-nt fan of singles (36
+        # each, between the caps) and random 10-nt UMIs, shuffled.
+        umis = (_fan(_random_umis(1, 8, seed=20)[0], doubles=True)
+                + _fan(bases[0]) + _random_umis(60, 10, seed=22))
+        return [umis[i] for i in rng.permutation(len(umis))], None
+    if name == "ends":
+        # Fans of 12-nt singles first and last: rows 0 and U-1 over 16.
+        tail = _fan(bases[2])
+        umis = _fan(bases[1]) + _random_umis(50, 12, seed=23) + tail[::-1]
+        return umis, [0, len(umis) - 1]
+    return _random_umis(40, 16, seed=24), None      # no edges at all
+
+
+@pytest.mark.parametrize("name", ["dense", "ends", "no_edges"])
+def test_overflow_splice_matches_jax(name):
+    """At the real caps, rows over _NEIGHBOR_K (and over _OVERFLOW_K,
+    the dense mask) are spliced into the CSR in place of their main-pass
+    slots, each row held to the JAX package's list."""
+    umis, over_at = _splice_case(name)
+    words, lengths = _packed(umis)
+    before = (td._neighbor_lists.edges, td._neighbor_lists.overflow_rows)
+    nbrs = td._neighbor_lists(words, lengths, 2, device="cpu")
+    want = jd._neighbor_lists(words, lengths, 2)
+    _assert_lists_equal(nbrs, want)
+    deg = np.diff(nbrs.indptr)
+    assert td._neighbor_lists.edges - before[0] == len(nbrs.indices)
+    assert td._neighbor_lists.overflow_rows - before[1] == \
+        (deg > td._NEIGHBOR_K).sum()
+    if name == "dense":
+        assert (deg > td._OVERFLOW_K).any() and (deg <= td._NEIGHBOR_K).any()
+        assert ((deg > td._NEIGHBOR_K) & (deg <= td._OVERFLOW_K)).any()
+    elif name == "ends":
+        assert (deg[over_at] > td._NEIGHBOR_K).all()
+        assert (deg <= td._NEIGHBOR_K).any()
+    else:
+        assert len(nbrs.indices) == 0 and not nbrs.indptr.any()
 
 
 def test_extract_writes_into_out():
@@ -233,7 +304,7 @@ def test_extract_kernel_edge_rows_on_card(cuda, monkeypatch, u, k, segs):
 
 def test_neighbor_lists_card_matches_cpu(cuda, monkeypatch):
     words, lengths = _packed(_variant_umis(3000, 10, seed=3))
-    want = td._neighbor_lists(words, lengths, 2, device="cpu")
+    want = csr_rows(td._neighbor_lists(words, lengths, 2, device="cpu"))
     got = td._neighbor_lists(words, lengths, 2, device=cuda)
     _assert_lists_equal(got, want)
     monkeypatch.setattr(td, "_NEIGHBOR_K", 2)

@@ -306,13 +306,12 @@ def test_unique_rows_numpy_matches_native(monkeypatch, width):
     assert (np.diff(firsts) > 0).all()
 
 
-@pytest.mark.parametrize("directional", [False, True])
-def test_greedy_absorb_native_matches_python_and_jax(monkeypatch,
-                                                     directional):
-    import shortseq_torch.io.native as tn
-
-    rng = np.random.default_rng(5 + directional)
-    for trial in range(20):
+def _random_graphs(seed, trials=20):
+    """(the JAX package's per-row lists, the same graph as the port's
+    CSR, counts with many ties) of random symmetric graphs of 2-119
+    nodes and up to 3 * nodes edges drawn."""
+    rng = np.random.default_rng(seed)
+    for _ in range(trials):
         u = int(rng.integers(2, 120))
         nbrs = [set() for _ in range(u)]
         for _ in range(int(rng.integers(0, 3 * u))):
@@ -321,14 +320,32 @@ def test_greedy_absorb_native_matches_python_and_jax(monkeypatch,
                 nbrs[a].add(int(b))
                 nbrs[b].add(int(a))
         nbrs = [np.asarray(sorted(x), np.int64) for x in nbrs]
-        counts = rng.integers(1, 6, size=u).astype(np.int64)   # many ties
+        indptr = np.zeros(u + 1, np.int64)
+        np.cumsum([len(x) for x in nbrs], out=indptr[1:])
+        csr = td._NeighborCsr(indptr, np.concatenate(nbrs).astype(np.int64))
+        yield nbrs, csr, rng.integers(1, 6, size=u).astype(np.int64)
+
+
+@pytest.mark.parametrize("directional", [False, True])
+def test_greedy_absorb_native_matches_python_and_jax(monkeypatch,
+                                                     directional):
+    import shortseq_torch.io.native as tn
+
+    for trial, (nbrs, csr, counts) in enumerate(
+            _random_graphs(5 + directional)):
         want = jd._greedy_absorb(nbrs, counts, directional)
-        native = td._greedy_absorb(nbrs, counts, directional)
+        native = td._greedy_absorb(csr, counts, directional)
         monkeypatch.setattr(tn, "greedy_absorb_native", lambda *a: None)
-        python = td._greedy_absorb(nbrs, counts, directional)
+        python = td._greedy_absorb(csr, counts, directional)
         monkeypatch.undo()
         np.testing.assert_array_equal(native, want, err_msg=trial)
         np.testing.assert_array_equal(python, want, err_msg=trial)
+
+
+def test_components_matches_jax():
+    for trial, (nbrs, csr, _) in enumerate(_random_graphs(9)):
+        np.testing.assert_array_equal(td._components(csr),
+                                      jd._components(nbrs), err_msg=trial)
 
 
 def test_card_matches_cpu(cuda):
