@@ -684,6 +684,14 @@ def unique_count(words: torch.Tensor, lengths: torch.Tensor,
     if w <= _LEX_SORT_MAX_LANES:
         perm = sort_rows(words, lengths)
         return group_count(words, lengths, weights, perm, n_out)
+    return _hash_count(words, lengths, weights, n_out)
+
+
+@scoped("ssq.hash_count")
+def _hash_count(words, lengths, weights, n_out: int):
+    """unique_count's route for rows over _LEX_SORT_MAX_LANES lanes: for
+    each hash family, kernel I, S over its keys, D with the collision
+    word, and the host's read of that word."""
     # The first family sorts the lengths with its keys; the rest start
     # from that length order and sort only their keys.
     by_length = None

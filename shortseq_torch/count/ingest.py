@@ -93,6 +93,8 @@ def packed_buckets(data, starts, lengths, batch_size: int | None = None,
 
     Raises the reference's errors: "Unsupported base character: X" on an
     invalid byte, TOO_LONG_MSG past 1024 nt.
+
+    Counts the bytes of the lanes it yields on packed_buckets.lane_bytes.
     """
     from ..count.device import PAD_LENGTH
     from ..io.fastq import gather_pack
@@ -131,4 +133,8 @@ def packed_buckets(data, starts, lengths, batch_size: int | None = None,
                 words = np.pad(words, ((0, m_pad - m), (0, 0)))
                 sub_len = np.pad(sub_len, (0, m_pad - m),
                                  constant_values=PAD_LENGTH)
+            packed_buckets.lane_bytes += words.nbytes
             yield words, sub_len
+
+
+packed_buckets.lane_bytes = 0

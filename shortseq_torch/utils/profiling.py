@@ -20,6 +20,9 @@ One library call is one tree under its root:
     ssq.gather_pack host gather + 2-bit pack + validate, one a bucket
     ssq.h2d         a copy to the card (count/device.py h2d)
     ssq.unique_count  the sort and group count (kernels S, D, I)
+      ssq.hash_count  its route for rows over 6 lanes: each hash
+                      family's I, S and D and the host's read of D's
+                      collision word (never opened at 6 lanes or fewer)
     ssq.d2h         a blocking read of a card tensor (count/device.py
                     d2h): the host's wait for the card's queue and the
                     copy
@@ -61,7 +64,8 @@ and copies.  The bytes and the number of copies that cross between the
 host and a CUDA device are counted on the helpers themselves:
 `count.device.h2d.bytes` / `.copies` and `count.device.d2h.bytes` /
 `.copies` (every d2h copy blocks, so its `.copies` counts the host's
-syncs)."""
+syncs).  `count.ingest.packed_buckets.lane_bytes` counts the bytes of
+the packed lanes the host yields."""
 
 from __future__ import annotations
 
